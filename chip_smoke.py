@@ -1,0 +1,368 @@
+#!/usr/bin/env python3
+"""Smoke run of the ``ics_tpu_torch`` port on one NVIDIA GPU.
+
+    python3 chip_smoke.py     # one GPU, about a minute with the kernel build
+
+Phases:
+  1. probe: the card (nvidia-smi), torch.version.cuda, nvcc, kernel build;
+  2. each hand-written kernel (K1 conv, K2 inner loop, K3 PSF gradient)
+     against its plain PyTorch twin on the card, at the main path's shapes,
+     with CUDA-event median times of both, taken in turns; K2 and K3 run
+     twice and must be bitwise equal;
+  3. the crop-scale pipeline on CUDA against the same pipeline on the CPU
+     (SSIM of the uint16 outputs);
+  4. the 1.9 MP reference case (bench.py's kwargs) on a synthetic scene;
+  5. the 24 MP case (bench.py's kwargs), the main path: launch counters are
+     zeroed just before it and must all be > 0 after it.
+
+Any failure exits non-zero before the last line, which is one JSON object
+``{"ok": true, "device": {...}}``; the line before it holds the kernels'
+numbers as JSON.  Imports neither JAX nor ``ics_tpu``; needs a CUDA GPU.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def _require(cond: bool, what: str) -> None:
+    print(("PASS " if cond else "FAIL ") + what, flush=True)
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def _median_ms(torch, fn, reps: int) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _time_pair(torch, kernel, plain, reps: int) -> tuple[float, float]:
+    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain;
+    each the mean of its two medians."""
+    p1 = _median_ms(torch, plain, reps)
+    k1 = _median_ms(torch, kernel, reps)
+    k2 = _median_ms(torch, kernel, reps)
+    p2 = _median_ms(torch, plain, reps)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def make_scene(h: int, w: int, blur: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """A structured synthetic frame (blocks, edges, gradients, texture, kept
+    in [0.15, 0.9]), blurred by a Gaussian PSF of width ``blur`` plus small
+    noise.  Returns (sharp float32 in [0, 1], blurred uint8).
+
+    Never uniform noise: the epsilon-free DoF blend is chaotic on it.
+    """
+    from scipy.ndimage import convolve1d
+
+    rng = np.random.default_rng(seed)
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :, None]
+    tint = rng.uniform(-0.1, 0.1, (1, 1, 3)).astype(np.float32)
+    img = 0.35 + 0.25 * xx + 0.15 * yy + tint + np.zeros((h, w, 3), np.float32)
+    for _ in range(120):  # blocks with sharp edges
+        bh, bw = rng.integers(h // 40, h // 6), rng.integers(w // 40, w // 6)
+        y0, x0 = rng.integers(0, h - bh), rng.integers(0, w - bw)
+        img[y0 : y0 + bh, x0 : x0 + bw] += rng.uniform(-0.25, 0.25, 3).astype(np.float32)
+    # texture: a stripe pattern plus blocky low-resolution noise
+    stripes = 0.04 * np.sin(2 * np.pi * (xx * w / 37.0 + yy * h / 53.0))
+    cells = rng.uniform(-0.05, 0.05, (h // 8 + 1, w // 8 + 1, 3)).astype(np.float32)
+    img += stripes + np.kron(cells, np.ones((8, 8, 1), np.float32))[:h, :w]
+    sharp = np.clip(img, 0.15, 0.9).astype(np.float32)
+    n = np.arange(blur, dtype=np.float64) - (blur - 1) / 2.0
+    k1 = np.exp(-0.5 * (n / (blur / 4.0)) ** 2)
+    k1 /= k1.sum()
+    blurred = convolve1d(convolve1d(sharp, k1, axis=0, mode="nearest"), k1, axis=1, mode="nearest")
+    blurred += rng.normal(0.0, 0.002, blurred.shape).astype(np.float32)
+    return sharp, (np.clip(blurred, 0.0, 1.0) * 255.0).round().astype(np.uint8)
+
+
+def ssim(a: np.ndarray, b: np.ndarray, data_range: float = 1.0, win: int = 7) -> float:
+    """Mean SSIM over channels (Wang et al. 2004, uniform 7x7 window, the
+    skimage defaults) in NumPy/SciPy."""
+    from scipy.ndimage import uniform_filter
+
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    c1, c2 = (0.01 * data_range) ** 2, (0.03 * data_range) ** 2
+    cov = win * win / (win * win - 1)
+    pad = win // 2
+    vals = []
+    for c in range(a.shape[-1]):
+        x, y = a[..., c], b[..., c]
+        ux, uy = uniform_filter(x, win), uniform_filter(y, win)
+        vx = cov * (uniform_filter(x * x, win) - ux * ux)
+        vy = cov * (uniform_filter(y * y, win) - uy * uy)
+        vxy = cov * (uniform_filter(x * y, win) - ux * uy)
+        s = ((2 * ux * uy + c1) * (2 * vxy + c2)) / ((ux**2 + uy**2 + c1) * (vx + vy + c2))
+        vals.append(float(np.mean(s[pad:-pad, pad:-pad])))
+    return float(np.mean(vals))
+
+
+# ---------------------------------------------------------------- phase 2
+REL_TOL = 1e-5  # max |kernel - twin| / max |twin|; the sum order differs
+
+
+def _rel(torch, got, ref) -> tuple[float, float]:
+    err = float(torch.max(torch.abs(got - ref)))
+    return err, err / max(float(torch.max(torch.abs(ref))), 1e-30)
+
+
+def phase_kernels(torch, dev, rng) -> dict:
+    from ics_tpu_torch.ops import cuda_conv, cuda_correlate, cuda_solver
+
+    rows = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    def window(m, mk):
+        img = rng.uniform(0.2, 0.8, (3, m // 8 + 1, m // 8 + 1))
+        img = np.kron(img, np.ones((1, 8, 8)))[:, :m, :m]
+        pad = mk // 2
+        u = np.pad(img, ((0, 0), (pad, pad), (pad, pad)), mode="edge")
+        psf = rng.uniform(0.5, 1.0, (3, mk, mk))
+        return t(img), t(u), t(psf / psf.sum(axis=(1, 2), keepdims=True))
+
+    # K1 at the 24 MP non-blind shapes and the 0.707 blind window
+    k1_err = 0.0
+    for label, shape, mk, mode, reps in [
+        ("24MP 9x9 valid", (3, 4012, 6012), 9, "valid", 5),
+        ("24MP 9x9 full", (3, 4004, 6004), 9, "full", 5),
+        ("369^2 7x7 valid", (3, 369, 369), 7, "valid", 20),
+        ("363^2 7x7 full", (3, 363, 363), 7, "full", 20),
+    ]:
+        a = torch.rand(shape, dtype=torch.float32, device=dev) * 0.75 + 0.15
+        k = t(rng.uniform(0.0, 1.0, (3, mk, mk)))
+        got = cuda_conv.conv_planar(a, k, mode)
+        ref = cuda_conv.conv_planar_plain(a, k, mode)
+        err, rel = _rel(torch, got, ref)
+        k1_err = max(k1_err, err)
+        ms, plain = _time_pair(
+            torch, lambda: cuda_conv.conv_planar(a, k, mode),
+            lambda: cuda_conv.conv_planar_plain(a, k, mode), reps,
+        )
+        print(f"K1 {label}: max_abs_err {err:.3e} rel {rel:.3e}; "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        _require(rel <= REL_TOL, f"K1 {label} within {REL_TOL:g} of its twin")
+        if label == "24MP 9x9 valid":
+            rows["K1"] = dict(ms=ms, plain_ms=plain)
+        del a, got, ref
+    rows["K1"]["max_abs_err"] = k1_err
+
+    # K2 at the 1.9 MP finest blind window (262^2, mk 7) and the 24 MP
+    # 0.5 window (261^2, mk 5)
+    k2_err = 0.0
+    for m, mk in [(256, 7), (257, 5)]:
+        img, u0, psf = window(m, mk)
+        for blind, corr in [(False, False), (True, False), (True, True)]:
+            kw = dict(step_factor=1e-3, lambd=1e4, blind=blind, correlation=corr)
+            u1, p1, e1 = cuda_solver.inner_loop_planar(u0.clone(), img, psf, **kw)
+            u2, p2, e2 = cuda_solver.inner_loop_planar(u0.clone(), img, psf, **kw)
+            ur, pr, er = cuda_solver.inner_loop_plain(u0.clone(), img, psf, **kw)
+            eu, ru = _rel(torch, u1, ur)
+            ep, rp = _rel(torch, p1, pr)
+            ee = float(torch.max(torch.abs(e1 - er)))
+            re = ee / float(torch.max(torch.abs(img)))
+            k2_err = max(k2_err, eu, ep)
+            tag = f"{m + mk - 1}^2 mk {mk} blind={blind} corr={corr}"
+            print(f"K2 {tag}: u {eu:.3e} (rel {ru:.3e}), psf {ep:.3e} "
+                  f"(rel {rp:.3e}), err {ee:.3e} (rel to image {re:.3e})")
+            _require(max(ru, rp, re) <= REL_TOL, f"K2 {tag} within {REL_TOL:g} of its twin")
+            _require(
+                torch.equal(u1, u2) and torch.equal(p1, p2) and torch.equal(e1, e2),
+                f"K2 {tag} bitwise reproducible",
+            )
+            if (m, blind, corr) == (256, True, False):
+                uk = u0.clone()
+                ms, plain = _time_pair(
+                    torch, lambda: cuda_solver.inner_loop_planar(uk, img, psf, **kw),
+                    lambda: cuda_solver.inner_loop_plain(u0, img, psf, **kw), 20,
+                )
+                print(f"K2 {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms per outer")
+                rows["K2"] = dict(ms=ms, plain_ms=plain)
+    rows["K2"]["max_abs_err"] = k2_err
+
+    # K3 at the 24 MP 0.707 and 1.0 blind windows
+    k3_err = 0.0
+    for m, mk in [(363, 7), (512, 9)]:
+        img, u, psf = window(m, mk)
+        err_t = cuda_conv.conv_planar_plain(u, psf, "valid") - img
+        got = cuda_correlate.psf_gradient_planar(u, err_t)
+        again = cuda_correlate.psf_gradient_planar(u, err_t)
+        ref = cuda_correlate.psf_gradient_plain(u, err_t)
+        err, rel = _rel(torch, got, ref)
+        k3_err = max(k3_err, err)
+        ms, plain = _time_pair(
+            torch, lambda: cuda_correlate.psf_gradient_planar(u, err_t),
+            lambda: cuda_correlate.psf_gradient_plain(u, err_t), 20,
+        )
+        tag = f"{m + mk - 1}^2 mk {mk}"
+        print(f"K3 {tag}: max_abs_err {err:.3e} rel {rel:.3e}; "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        _require(rel <= REL_TOL, f"K3 {tag} within {REL_TOL:g} of its twin")
+        _require(torch.equal(got, again), f"K3 {tag} bitwise reproducible")
+        if mk == 9:
+            rows["K3"] = dict(ms=ms, plain_ms=plain)
+    rows["K3"]["max_abs_err"] = k3_err
+    return rows
+
+
+# ------------------------------------------------------------ phases 3-5
+def _deblur(torch, pic, device, **kw):
+    from ics_tpu_torch import deblur_module
+
+    stats, timer = [], {}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = deblur_module(pic, "smoke", None, stats_out=stats,
+                            compute_timer=timer, device=device, **kw)
+    wall = time.perf_counter() - t0
+    _require("result contains NaN" not in buf.getvalue(),
+             f"{device} pipeline output has no NaN")
+    _require(out.dtype == np.uint16 and out.shape == pic.shape,
+             f"{device} output is uint16 of shape {pic.shape}")
+    levels = [
+        (s["case"], round(float(s["scale"]), 3), s["result"].iterations,
+         s["result"].converged)
+        for s in stats
+    ]
+    return out, wall, timer["compute_s"], levels
+
+
+def _report(label, wall, compute, levels):
+    outers = sum(n for _, _, n, _ in levels)
+    print(f"{label}: wall {wall:.3f} s, compute-only {compute:.3f} s, {outers} outers")
+    for case, scale, n, conv in levels:
+        print(f"  {case:9s} scale {scale:.3f}: {n} outers, converged={conv}")
+
+
+def phase_pipelines(torch, dev) -> dict:
+    from ics_tpu_torch.ops import cuda_conv, cuda_correlate, cuda_solver
+
+    kernels = (cuda_conv, cuda_solver, cuda_correlate)
+
+    # 3. crop scale, CUDA vs CPU
+    _, crop = make_scene(257, 263, 5, seed=3)
+    kw = dict(blur_width=5, mask_size=101, iterations=30, tolerance=0.1,
+              verbose=False)
+    out_gpu, wall, comp, levels = _deblur(torch, crop, "cuda", **kw)
+    out_cpu, wall_c, comp_c, levels_c = _deblur(torch, crop, "cpu", **kw)
+    _report("crop 257x263 cuda", wall, comp, levels)
+    _report("crop 257x263 cpu", wall_c, comp_c, levels_c)
+    s = ssim(out_gpu / 65535.0, out_cpu / 65535.0)
+    print(f"crop SSIM cuda vs cpu: {s:.6f}")
+    _require(s >= 0.999, "port on CUDA vs port on CPU SSIM >= 0.999")
+
+    # 4. the 1.9 MP reference case (bench.py:402-413)
+    sharp19, pic19 = make_scene(1367, 1394, 7, seed=19)
+    kw19 = dict(blur_width=7, mask=[584, 795], display=False, tolerance=0.1,
+                quality="normal", preview=False, blur="static", iterations=200,
+                verbose=False, precision="exact")
+    out19, wall, comp, levels = _deblur(torch, pic19, "cuda", **kw19)
+    _report("1.9MP 1367x1394", wall, comp, levels)
+    print(f"1.9MP SSIM vs sharp: blurred {ssim(pic19 / 255.0, sharp19):.4f}, "
+          f"deblurred {ssim(out19 / 65535.0, sharp19):.4f} (informational)")
+
+    # 5. the 24 MP case (bench.py:336-348): the main path
+    _, pic24 = make_scene(4000, 6000, 9, seed=24)
+    kw24 = dict(blur_width=9, mask=[2000, 3000], mask_size=511, display=False,
+                tolerance=0.1, quality="normal", preview=False, blur="static",
+                iterations=200, verbose=False, precision="exact")
+    torch.cuda.reset_peak_memory_stats(dev)
+    for mod in kernels:
+        mod.launches = 0
+    out24, wall, comp, levels = _deblur(torch, pic24, "cuda", **kw24)
+    launches = {
+        "K1": cuda_conv.launches,
+        "K2": cuda_solver.launches,
+        "K3": cuda_correlate.launches,
+    }
+    _report("24MP 4000x6000", wall, comp, levels)
+    print(f"24MP peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    print(f"24MP launches: {json.dumps(launches)}")
+    _require(all(n > 0 for n in launches.values()),
+             "K1, K2 and K3 all launched on the 24 MP main path")
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL torch.cuda.is_available() is False: this needs a CUDA GPU",
+              file=sys.stderr)
+        return 2
+    from ics_tpu_torch import _build
+    from ics_tpu_torch._device import exact_f32
+
+    exact_f32()
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[-1]
+    print(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, nvcc: {nvcc}")
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
+
+    rng = np.random.default_rng(0)
+    torch.manual_seed(0)
+    rows = phase_kernels(torch, dev, rng)
+    launches = phase_pipelines(torch, dev)
+
+    sources = {
+        "K1": ("ics_tpu_torch/csrc/conv2d.cu", "ics_tpu/ops/pallas_conv.py:39"),
+        "K2": ("ics_tpu_torch/csrc/inner_loop.cu", "ics_tpu/ops/pallas_solver.py:75"),
+        "K3": ("ics_tpu_torch/csrc/psf_grad.cu", "ics_tpu/ops/pallas_correlate.py:38"),
+    }
+    report = {"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name],
+         "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
+         "plain_ms": rows[name]["plain_ms"]}
+        for name, (src, rep) in sources.items()
+    ]}
+    print(f"card: {smi}")
+    print(json.dumps(report))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as exc:
+        print(f"FAIL {type(exc).__name__}: {exc}", file=sys.stderr)
+        sys.exit(1)

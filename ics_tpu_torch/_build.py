@@ -1,0 +1,118 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface and are compiled by
+``nvcc`` into one shared library, loaded with ``ctypes``.  The build runs at
+first use (never at import: machines without a GPU import every module), is
+keyed by a hash of the sources and flags, and lands in ``_build/`` beside
+this file, which ``.gitignore`` lists.
+
+No ``--use_fast_math``: the solver's DoF term divides by ``gradu + image``
+with no epsilon (ics_tpu/models/rl_mm.py:413), so approximate division or
+flushed denormals would leave the parity class of the JAX reference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["load_library", "check", "build_seconds"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD = Path(__file__).resolve().parent / "_build"
+_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# every entry returns cudaGetLastError() after its launch
+_SIGNATURES = {
+    # a, taps, out, C, H, W, MK, NK, plo, qlo, Ho, Wo, stream
+    "ics_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # u, err, partial, out, C, uM, uN, M, N, band_rows, n_bands, stream
+    "ics_psf_grad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # n_blocks (out), device
+    "ics_inner_loop_blocks": [ctypes.POINTER(_I), _I],
+    # u, image, psf_in, psf_out, err, ut, greg, dof, partial,
+    # C, uM, uN, M, N, mk, step_factor, lambd, inv_un, inv_un3,
+    # blind, correlation, n_blocks, stream
+    "ics_inner_loop": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                       _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds: float | None = None  # wall time of this process's build
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def _digest(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in sources + sorted(_CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load ``libics_kernels.so``."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = _sources()
+        out_dir = _BUILD / _digest(sources)
+        so = out_dir / "libics_kernels.so"
+        if not so.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            tmp = out_dir / f"libics_kernels.{os.getpid()}.so"
+            cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    "nvcc failed:\n" + " ".join(cmd) + "\n" + proc.stdout
+                    + proc.stderr
+                )
+            os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
+            build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error (its cudaGetLastError())."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")

@@ -1,0 +1,133 @@
+"""2-D convolution with exact scipy.signal.convolve ``valid|same|full``
+semantics (counterpart of ics_tpu/ops/conv.py).
+
+Two backends, picked by kernel size:
+
+* ``ops/cuda_conv.py`` (K1) for every per-channel convolution with taps up
+  to 31x31: the hand-written CUDA kernel on CUDA tensors, its plain twin on
+  CPU tensors.  The JAX package sends 81-961 taps to its Pallas kernel and
+  smaller ones to XLA stencils; the port sends them all to K1.
+* ``torch.fft`` above that (``_conv_fft``), the JAX ``fft`` backend.
+
+``fft_autocorrelate_same`` is the residual-whiteness autocovariance of the
+solver's stopping rule.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+__all__ = ["convolve2d", "convolve_rgb", "conv_planar", "fft_autocorrelate_same"]
+
+
+def _out_shape(m: int, mk: int, mode: str) -> int:
+    if mode == "valid":
+        return m - mk + 1
+    if mode == "same":
+        return m
+    if mode == "full":
+        return m + mk - 1
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def _pads(mk: int, mode: str) -> tuple[int, int]:
+    """Per-axis (lo, hi) padding so that correlation-with-flipped-kernel at
+    this padding equals the scipy convolution slice for ``mode``.
+
+    With the kernel flipped, out[i] = full[i + (mk-1) - lo]:
+    full → lo = hi = mk-1; same → lo = ceil((mk-1)/2), hi = (mk-1)//2;
+    valid → lo = hi = 0.
+    """
+    if mode == "valid":
+        return (0, 0)
+    if mode == "full":
+        return (mk - 1, mk - 1)
+    if mode == "same":
+        off = (mk - 1) // 2
+        return (mk - 1 - off, off)
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def _next_fast_len(n: int) -> int:
+    """Smallest 2/3/5-smooth integer >= n."""
+    if n <= 2:
+        return n
+    best = 1 << (n - 1).bit_length()  # next power of two is an upper bound
+    p5 = 1
+    while p5 < best:
+        p53 = p5
+        while p53 < best:
+            # round p53 up by powers of two
+            rem = -(-n // p53)  # ceil(n / p53)
+            p2 = 1 << max(0, (rem - 1).bit_length())
+            cand = p53 * p2
+            if n <= cand < best:
+                best = cand
+            p53 *= 3
+        p5 *= 5
+    return best
+
+
+def _conv_fft(a: torch.Tensor, k: torch.Tensor, mode: str) -> torch.Tensor:
+    """Batched FFT convolution. a: (C, H, W); k: (C, MK, NK)."""
+    _, m, n = a.shape
+    _, mk, nk = k.shape
+    mf, nf = m + mk - 1, n + nk - 1
+    s = (_next_fast_len(mf), _next_fast_len(nf))
+    fa = torch.fft.rfft2(a, s=s, dim=(-2, -1))
+    fk = torch.fft.rfft2(k, s=s, dim=(-2, -1))
+    full = torch.fft.irfft2(fa * fk, s=s, dim=(-2, -1))[..., :mf, :nf]
+    ym, xn = _out_shape(m, mk, mode), _out_shape(n, nk, mode)
+    oy, ox = (mf - ym) // 2, (nf - xn) // 2
+    return full[:, oy : oy + ym, ox : ox + xn].contiguous()
+
+
+def conv_planar(a: torch.Tensor, k: torch.Tensor, mode: str) -> torch.Tensor:
+    """Per-channel convolution of planar a: (C, H, W) with k: (C, MK, NK)."""
+    from ics_tpu_torch.ops import cuda_conv
+
+    if max(k.shape[1], k.shape[2]) <= cuda_conv.MAX_TAPS_SIDE:
+        return cuda_conv.conv_planar(a, k, mode)
+    return _conv_fft(a, k, mode)
+
+
+def convolve2d(a: torch.Tensor, k: torch.Tensor, mode: str = "same") -> torch.Tensor:
+    """scipy.signal.convolve-compatible 2-D convolution of (H, W) tensors."""
+    return conv_planar(a.unsqueeze(0).contiguous(), k.unsqueeze(0).contiguous(), mode)[0]
+
+
+def convolve_rgb(a: torch.Tensor, k: torch.Tensor, mode: str = "same") -> torch.Tensor:
+    """Per-channel 2-D convolution of an (H, W, C) image.
+
+    ``k`` is (MK, NK, C), each channel with its own kernel, or (MK, NK),
+    broadcast across channels.
+    """
+    if k.ndim == 2:
+        k = k.unsqueeze(-1).expand(*k.shape, a.shape[-1])
+    out = conv_planar(
+        a.permute(2, 0, 1).contiguous(), k.permute(2, 0, 1).contiguous(), mode
+    )
+    return out.permute(1, 2, 0)
+
+
+def _autocorrelate_planar(t: torch.Tensor) -> torch.Tensor:
+    """``convolve(t, rot180(t), 'same')`` per channel of planar (C, H, W)."""
+    _, m, n = t.shape
+    mf, nf = 2 * m - 1, 2 * n - 1
+    s = (_next_fast_len(mf), _next_fast_len(nf))
+    ft = torch.fft.rfft2(t, s=s, dim=(-2, -1))
+    # conv(t, rot180(t)) is |F(t)|² up to the rot180 shift, which in index
+    # space is a circular shift by (m-1, n-1) of the inverse transform
+    full = torch.fft.irfft2(ft * torch.conj(ft), s=s, dim=(-2, -1))
+    full = torch.roll(full, shifts=(m - 1, n - 1), dims=(-2, -1))[..., :mf, :nf]
+    oy, ox = (mf - m) // 2, (nf - n) // 2
+    return full[:, oy : oy + m, ox : ox + n]
+
+
+def fft_autocorrelate_same(patch: torch.Tensor) -> torch.Tensor:
+    """``convolve(t, rot90(t, 2), mode='same')`` per channel of an (H, W, C)
+    patch, via one FFT (ics_tpu/ops/conv.py:490-516)."""
+    return _autocorrelate_planar(patch.permute(2, 0, 1)).permute(1, 2, 0)
