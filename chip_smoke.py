@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the ``ics_tpu_torch`` port on one NVIDIA GPU.
 
-    python3 chip_smoke.py     # one GPU, about a minute with the kernel build
+    python3 chip_smoke.py     # one GPU, a few minutes with the kernel build
 
 Phases:
   1. probe: the card (nvidia-smi), torch.version.cuda, nvcc, kernel build;
-  2. each hand-written kernel (K1 conv, K2 inner loop, K3 PSF gradient)
-     against its plain PyTorch twin on the card, at the main path's shapes,
-     with CUDA-event median times of both, taken in turns; K2 and K3 run
-     twice and must be bitwise equal;
+  2. each hand-written kernel (K1 conv, K2 inner loop, K3 PSF gradient, K4s
+     split and K4 bf16 tensor-core convs, K5 TV stencil) against its plain
+     PyTorch twin on the card, at its path's shapes, with CUDA-event median
+     times of both, taken in turns; K2-K5 run twice and must be bitwise
+     equal;
   3. the crop-scale pipeline on CUDA against the same pipeline on the CPU
-     (SSIM of the uint16 outputs);
+     (SSIM of the uint16 outputs), in exact, mixed, high, fast and use_tv
+     under each tv_norm;
   4. the 1.9 MP reference case (bench.py's kwargs) on a synthetic scene;
-  5. the 24 MP case (bench.py's kwargs), the main path: launch counters are
-     zeroed just before it and must all be > 0 after it.
+  5. the 24 MP case (bench.py's kwargs) in exact f32, the main path, then
+     in precision 'high', in 'mixed' and with use_tv: the launch counters
+     are zeroed just before each run; K1-K3 must be > 0 after the exact
+     run, K4s after 'high', K4 after 'mixed' and K5 after use_tv.
 
 Any failure exits non-zero before the last line, which is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
@@ -126,12 +130,19 @@ REL_TOL = 1e-5  # max |kernel - twin| / max |twin|; the sum order differs
 
 
 def _rel(torch, got, ref) -> tuple[float, float]:
-    err = float(torch.max(torch.abs(got - ref)))
-    return err, err / max(float(torch.max(torch.abs(ref))), 1e-30)
+    err = float(torch.max(torch.abs(got.float() - ref.float())))
+    return err, err / max(float(torch.max(torch.abs(ref.float()))), 1e-30)
+
+
+def _ulps(torch, got, ref) -> float:
+    """Largest |got - ref| in bf16 ulps of each (positive) ref value."""
+    ref = ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(ref)) - 7)
+    return float(torch.max(torch.abs(got.float() - ref) / ulp))
 
 
 def phase_kernels(torch, dev, rng) -> dict:
-    from ics_tpu_torch.ops import cuda_conv, cuda_correlate, cuda_solver
+    from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma, cuda_correlate, cuda_solver, cuda_tv
 
     rows = {}
 
@@ -227,6 +238,71 @@ def phase_kernels(torch, dev, rng) -> dict:
         if mk == 9:
             rows["K3"] = dict(ms=ms, plain_ms=plain)
     rows["K3"]["max_abs_err"] = k3_err
+
+    # K4s and K4 at the 24 MP non-blind shapes and the 369^2 7x7 window
+    for name in ("K4s", "K4"):
+        worst = 0.0
+        for label, shape, mk, mode, reps in [
+            ("24MP 9x9 valid", (3, 4012, 6012), 9, "valid", 5),
+            ("24MP 9x9 full", (3, 4004, 6004), 9, "full", 5),
+            ("369^2 7x7 valid", (3, 369, 369), 7, "valid", 20),
+        ]:
+            a = torch.rand(shape, dtype=torch.float32, device=dev) * 0.75 + 0.15
+            k = t(rng.uniform(0.05, 1.0, (3, mk, mk)))
+            if name == "K4s":
+                kern, plain = cuda_conv_mma.conv_split, cuda_conv_mma.conv_split_plain
+            else:
+                a, k = a.bfloat16(), k.bfloat16()
+                kern, plain = cuda_conv_mma.conv_bf16, cuda_conv_mma.conv_bf16_plain
+            got, again, ref = kern(a, k, mode), kern(a, k, mode), plain(a, k, mode)
+            err, rel = _rel(torch, got, ref)
+            ms, plain_ms = _time_pair(torch, lambda: kern(a, k, mode),
+                                      lambda: plain(a, k, mode), reps)
+            if name == "K4s":
+                bound = f"within {REL_TOL:g} of its twin"
+                ok = rel <= REL_TOL
+                detail = f"rel {rel:.3e}"
+            else:
+                ulps = _ulps(torch, got, ref)
+                bound = "within one bf16 ulp of its twin"
+                ok = ulps <= 1.0
+                detail = f"{ulps:.2f} bf16 ulp"
+            print(f"{name} {label}: max_abs_err {err:.3e} {detail}; "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            _require(ok, f"{name} {label} {bound}")
+            _require(torch.equal(got, again), f"{name} {label} bitwise reproducible")
+            worst = max(worst, err)
+            if label == "24MP 9x9 valid":
+                rows[name] = dict(ms=ms, plain_ms=plain_ms)
+            del a, got, again, ref
+        rows[name]["max_abs_err"] = worst
+
+    # K5 at the 24 MP non-blind frame, every (order, norm), and bf16 once
+    worst = 0.0
+    u = torch.rand((3, 4001, 6001), dtype=torch.float32, device=dev) * 0.75 + 0.15
+    for order, norm, dtype in [(2, 1, torch.float32), (2, 2, torch.float32),
+                               (1, 1, torch.float32), (1, 2, torch.float32),
+                               (2, 2, torch.bfloat16)]:
+        x = u.to(dtype)
+        got = cuda_tv.tv_planar(x, 1e-6, order, norm)
+        again = cuda_tv.tv_planar(x, 1e-6, order, norm)
+        ref = cuda_tv.tv_planar_plain(x, 1e-6, order, norm)
+        errs = [_rel(torch, g, r) for g, r in zip(got, ref)]
+        err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+        ms, plain_ms = _time_pair(torch, lambda: cuda_tv.tv_planar(x, 1e-6, order, norm),
+                                  lambda: cuda_tv.tv_planar_plain(x, 1e-6, order, norm), 5)
+        tag = f"24MP order {order} L{norm} {str(dtype).split('.')[-1]}"
+        bitwise = all(torch.equal(g, r) for g, r in zip(got, ref))
+        print(f"K5 {tag}: max_abs_err {err:.3e} rel {rel:.3e} (bitwise equal to twin: "
+              f"{bitwise}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        _require(rel <= REL_TOL, f"K5 {tag} within {REL_TOL:g} of its twin")
+        _require(all(torch.equal(g, h) for g, h in zip(got, again)),
+                 f"K5 {tag} bitwise reproducible")
+        worst = max(worst, err)
+        if (order, norm, dtype) == (2, 2, torch.float32):
+            rows["K5"] = dict(ms=ms, plain_ms=plain_ms)
+        del x, got, again, ref
+    rows["K5"]["max_abs_err"] = worst
     return rows
 
 
@@ -260,22 +336,46 @@ def _report(label, wall, compute, levels):
         print(f"  {case:9s} scale {scale:.3f}: {n} outers, converged={conv}")
 
 
+def _counters():
+    """{kernel: launches so far} over every wrapper's counter."""
+    from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma, cuda_correlate, cuda_solver, cuda_tv
+
+    return {
+        "K1": cuda_conv.launches, "K2": cuda_solver.launches,
+        "K3": cuda_correlate.launches, "K4s": cuda_conv_mma.split_launches,
+        "K4": cuda_conv_mma.bf16_launches, "K5": cuda_tv.launches,
+    }
+
+
+def _zero_counters() -> None:
+    from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma, cuda_correlate, cuda_solver, cuda_tv
+
+    for mod in (cuda_conv, cuda_solver, cuda_correlate, cuda_tv):
+        mod.launches = 0
+    cuda_conv_mma.split_launches = cuda_conv_mma.bf16_launches = 0
+
+
 def phase_pipelines(torch, dev) -> dict:
-    from ics_tpu_torch.ops import cuda_conv, cuda_correlate, cuda_solver
-
-    kernels = (cuda_conv, cuda_solver, cuda_correlate)
-
-    # 3. crop scale, CUDA vs CPU
-    _, crop = make_scene(257, 263, 5, seed=3)
-    kw = dict(blur_width=5, mask_size=101, iterations=30, tolerance=0.1,
-              verbose=False)
-    out_gpu, wall, comp, levels = _deblur(torch, crop, "cuda", **kw)
-    out_cpu, wall_c, comp_c, levels_c = _deblur(torch, crop, "cpu", **kw)
-    _report("crop 257x263 cuda", wall, comp, levels)
-    _report("crop 257x263 cpu", wall_c, comp_c, levels_c)
-    s = ssim(out_gpu / 65535.0, out_cpu / 65535.0)
-    print(f"crop SSIM cuda vs cpu: {s:.6f}")
-    _require(s >= 0.999, "port on CUDA vs port on CPU SSIM >= 0.999")
+    # 3. crop scale, CUDA vs CPU, in every mode this port runs
+    crops = {5: make_scene(257, 263, 5, seed=3)[1], 9: make_scene(257, 263, 9, seed=9)[1]}
+    for label, blur, extra, bound in [
+        ("exact", 5, {}, 0.999),
+        ("mixed", 5, dict(precision="mixed"), 0.999),
+        ("high", 9, dict(precision="high"), 0.999),
+        ("fast", 5, dict(precision="fast"), 0.999),
+        ("use_tv collab", 5, dict(use_tv=True, tv_norm="collab"), 0.999),
+        ("use_tv channel", 5, dict(use_tv=True, tv_norm="channel"), 0.999),
+        ("use_tv collab_l2", 5, dict(use_tv=True, tv_norm="collab_l2"), 0.999),
+    ]:
+        kw = dict(blur_width=blur, mask_size=101, iterations=30, tolerance=0.1,
+                  verbose=False, **extra)
+        out_gpu, wall, comp, levels = _deblur(torch, crops[blur], "cuda", **kw)
+        out_cpu, wall_c, comp_c, levels_c = _deblur(torch, crops[blur], "cpu", **kw)
+        _report(f"crop 257x263 blur {blur} {label} cuda", wall, comp, levels)
+        _report(f"crop 257x263 blur {blur} {label} cpu", wall_c, comp_c, levels_c)
+        s = ssim(out_gpu / 65535.0, out_cpu / 65535.0)
+        print(f"crop {label} SSIM cuda vs cpu: {s:.6f}")
+        _require(s >= bound, f"{label}: port on CUDA vs port on CPU SSIM >= {bound}")
 
     # 4. the 1.9 MP reference case (bench.py:402-413)
     sharp19, pic19 = make_scene(1367, 1394, 7, seed=19)
@@ -287,25 +387,31 @@ def phase_pipelines(torch, dev) -> dict:
     print(f"1.9MP SSIM vs sharp: blurred {ssim(pic19 / 255.0, sharp19):.4f}, "
           f"deblurred {ssim(out19 / 65535.0, sharp19):.4f} (informational)")
 
-    # 5. the 24 MP case (bench.py:336-348): the main path
+    # 5. the 24 MP case (bench.py:336-348): the main path in exact f32, then
+    # the paths of K4s, K4 and K5; the counters are zeroed just before each
+    # run and read just after it
     _, pic24 = make_scene(4000, 6000, 9, seed=24)
     kw24 = dict(blur_width=9, mask=[2000, 3000], mask_size=511, display=False,
                 tolerance=0.1, quality="normal", preview=False, blur="static",
-                iterations=200, verbose=False, precision="exact")
-    torch.cuda.reset_peak_memory_stats(dev)
-    for mod in kernels:
-        mod.launches = 0
-    out24, wall, comp, levels = _deblur(torch, pic24, "cuda", **kw24)
-    launches = {
-        "K1": cuda_conv.launches,
-        "K2": cuda_solver.launches,
-        "K3": cuda_correlate.launches,
-    }
-    _report("24MP 4000x6000", wall, comp, levels)
-    print(f"24MP peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
-    print(f"24MP launches: {json.dumps(launches)}")
-    _require(all(n > 0 for n in launches.values()),
-             "K1, K2 and K3 all launched on the 24 MP main path")
+                iterations=200, verbose=False)
+    launches = {}
+    for label, extra, names in [
+        ("exact", dict(precision="exact"), ("K1", "K2", "K3")),
+        ("high", dict(precision="high"), ("K4s",)),
+        ("mixed", dict(precision="mixed"), ("K4",)),
+        ("use_tv collab", dict(precision="exact", use_tv=True, tv_norm="collab"), ("K5",)),
+    ]:
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counters()
+        _, wall, comp, levels = _deblur(torch, pic24, "cuda", **kw24, **extra)
+        counts = _counters()
+        _report(f"24MP 4000x6000 {label}", wall, comp, levels)
+        print(f"24MP {label} peak device memory: "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+        print(f"24MP {label} launches: {json.dumps(counts)}")
+        _require(all(counts[n] > 0 for n in names),
+                 f"{', '.join(names)} launched on the 24 MP {label} path")
+        launches.update({n: counts[n] for n in names})
     return launches
 
 
@@ -343,6 +449,9 @@ def main() -> int:
         "K1": ("ics_tpu_torch/csrc/conv2d.cu", "ics_tpu/ops/pallas_conv.py:39"),
         "K2": ("ics_tpu_torch/csrc/inner_loop.cu", "ics_tpu/ops/pallas_solver.py:75"),
         "K3": ("ics_tpu_torch/csrc/psf_grad.cu", "ics_tpu/ops/pallas_correlate.py:38"),
+        "K4s": ("ics_tpu_torch/csrc/conv_mma.cu", "ics_tpu/ops/pallas_conv_mxu.py:118"),
+        "K4": ("ics_tpu_torch/csrc/conv_mma.cu", "ics_tpu/ops/pallas_conv_mxu.py:170"),
+        "K5": ("ics_tpu_torch/csrc/tv.cu", "ics_tpu/ops/pallas_tv.py:62"),
     }
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

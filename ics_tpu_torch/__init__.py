@@ -2,11 +2,13 @@
 
 The JAX package ``ics_tpu`` stays the reference; this package mirrors its
 layout (``ops/``, ``models/``, ``utils/``) and names, imports ``torch`` and
-never ``jax`` or ``ics_tpu``.  Its first slice is ``deblur_module`` in exact
-float32 with the ``mm`` solver, carried on the GPU by three hand-written CUDA
-kernels (``csrc/``): the per-channel convolution (K1), the one-launch RL-MM
-inner loop (K2) and the blind PSF gradient (K3).  Each kernel has a plain
-PyTorch twin that runs on CPU tensors.
+never ``jax`` or ``ics_tpu``.  It runs ``deblur_module`` with the ``mm``
+solver in every precision mode and with the ``use_tv`` regularizer, carried
+on the GPU by hand-written CUDA kernels (``csrc/``): the per-channel
+convolution (K1), the one-launch RL-MM inner loop (K2), the blind PSF
+gradient (K3), the bf16 tensor-core convolutions, split-f32 (K4s) and bf16
+(K4), and the TV stencil (K5).  Each kernel has a plain PyTorch twin that
+runs on CPU tensors.
 
 Public surface of this slice:
   - ``deblur_module``      (reference: deconvolve.py:66)

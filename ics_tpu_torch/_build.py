@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface and are compiled by
-``nvcc`` into one shared library, loaded with ``ctypes``.  The build runs at
-first use (never at import: machines without a GPU import every module), is
-keyed by a hash of the sources and flags, and lands in ``_build/`` beside
-this file, which ``.gitignore`` lists.
+The sources under ``csrc/`` have a plain C interface.  ``nvcc`` compiles
+each one to an object file, all started together, then links them into one
+shared library, loaded with ``ctypes``.  The build runs at first use (never
+at import: machines without a GPU import every module), is keyed by a hash
+of the sources and flags, and lands in ``_build/`` beside this file, which
+``.gitignore`` lists.
 
 No ``--use_fast_math``: the solver's DoF term divides by ``gradu + image``
 with no epsilon (ics_tpu/models/rl_mm.py:413), so approximate division or
@@ -28,7 +29,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -48,6 +49,11 @@ _SIGNATURES = {
     "ics_inner_loop": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                        _I, _I, _I, _P],
+    # a, taps, out, C, H, W, MK, NK, plo, qlo, Ho, Wo, stream
+    "ics_conv_mma_split": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ics_conv_mma_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # u, tv, div, C, H, W, order, norm, eps, eps2, sqrt2, adjust, is_bf16, stream
+    "ics_tv": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -81,6 +87,11 @@ def _digest(sources: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def _finish(cmd: list[str], output: str, returncode: int) -> None:
+    if returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" + output)
+
+
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load ``libics_kernels.so``."""
     global _lib, build_seconds
@@ -92,15 +103,26 @@ def load_library() -> ctypes.CDLL:
         so = out_dir / "libics_kernels.so"
         if not so.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"libics_kernels.{os.getpid()}.so"
-            cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
+            nvcc, tag = _nvcc(), os.getpid()
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    "nvcc failed:\n" + " ".join(cmd) + "\n" + proc.stdout
-                    + proc.stderr
+            objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
+            procs = [
+                (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True))
+                for cmd in (
+                    [nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources, objs)
                 )
+            ]
+            # wait for every compile before reporting the first failure
+            done = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+            for result in done:
+                _finish(*result)
+            tmp = out_dir / f"libics_kernels.{tag}.so"
+            cmd = [nvcc, *_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            _finish(cmd, proc.stdout, proc.returncode)
             os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(so))

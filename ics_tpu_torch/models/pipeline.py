@@ -11,6 +11,7 @@ between levels, and only solver status scalars come back.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
 
 import numpy as np
@@ -31,6 +32,10 @@ from ics_tpu_torch.utils.timing import timeit
 from ics_tpu_torch.utils.trace import Tracer
 
 __all__ = ["pad_image", "build_pyramid", "deblur_module"]
+
+# precision='hybrid'/'hybrid-high': smallest coarse non-blind level that
+# runs the reduced-precision config (ics_tpu/models/pipeline.py:38)
+_HYBRID_MIN_PIXELS = 2_000_000
 
 
 def _upload(raw: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -155,10 +160,11 @@ def deblur_module(
     """Blind deblurring API, with the kwargs of ``ics_tpu.deblur_module``
     (parity: ref deconvolve.py:66-368).  Returns the 16-bit image array.
 
-    Ported in this slice: the ``mm`` solver in exact float32, blind then
-    non-blind, ``preview``, ``blind_budget``, ``nonblind_levels``,
-    ``early_stop``, ``psf_path`` / ``save_psf_path``, ``stats_out``,
-    ``compute_timer`` and ``trace``.  ``dest_path`` must be None (the TIFF
+    Ported: the ``mm`` solver, blind then non-blind, in every ``precision``
+    ('exact', 'high', 'mixed', 'fast', 'hybrid', 'hybrid-high'), with
+    ``use_tv`` / ``tv_norm``, ``preview``, ``blind_budget``,
+    ``nonblind_levels``, ``early_stop``, ``psf_path`` / ``save_psf_path``,
+    ``stats_out``, ``compute_timer`` and ``trace``.  ``dest_path`` must be None (the TIFF
     writer is not ported yet); the other unported options raise
     ``NotImplementedError`` naming their ROADMAP item.
 
@@ -273,22 +279,34 @@ def deblur_module(
             f"unknown precision {precision!r} (use 'exact', 'high', "
             "'mixed', 'fast', 'hybrid' or 'hybrid-high')"
         )
-    if precision != "exact":
-        raise _not_ported(f"precision={precision!r}", "Precision modes")
-    if use_tv:
-        raise _not_ported("use_tv", "TV regularization")
     if inner_loop != "auto":
         raise NotImplementedError(
             f"inner_loop={inner_loop!r}: the TPU inner-loop variants are not "
             "ported; the port picks its inner loop from the device and the "
             "window size"
         )
+    # precision -> solver dtype, conv precision and guard
+    # (ics_tpu/models/pipeline.py:357-411): 'high' forces the DoF guard on
+    # every solve, blind ones included, as the JAX package does
     solver_cfg = config or RLConfig(
         p=p, norm=norm, order=order, priority=priority, refocus=refocus,
+        dtype={"mixed": "mixed", "fast": "bfloat16"}.get(precision, "float32"),
         early_stop=early_stop,
+        conv_precision="high" if precision == "high" else "exact",
+        use_tv=use_tv, tv_norm=tv_norm,
+        dof_guard=True if precision == "high" else None,
     )
-    solve = lambda *a, **kw: richardson_lucy_MM(
-        *a, config=solver_cfg, verbose=verbose, device=dev, **kw
+    # 'hybrid' / 'hybrid-high': the coarse non-blind levels of at least
+    # _HYBRID_MIN_PIXELS run mixed, or f32 with K4s convs and the guard
+    solver_cfg_coarse = None
+    if config is None and precision in ("hybrid", "hybrid-high"):
+        solver_cfg_coarse = dataclasses.replace(
+            solver_cfg,
+            **({"dtype": "mixed"} if precision == "hybrid"
+               else {"conv_precision": "high", "dof_guard": True}),
+        )
+    solve = lambda *a, cfg=solver_cfg, **kw: richardson_lucy_MM(
+        *a, config=cfg, verbose=verbose, device=dev, **kw
     )
 
     deblured_image = pic
@@ -401,6 +419,12 @@ def deblur_module(
                             psf = res.psf
                 else:
                     deblured_image = _pad_edge(deblured_image, (pad, pad), (pad, pad))
+                    level_cfg = (
+                        solver_cfg_coarse
+                        if solver_cfg_coarse is not None and i != 1.0
+                        and temp_height * temp_width >= _HYBRID_MIN_PIXELS
+                        else solver_cfg
+                    )
                     with _stage("solve (non-blind)"):
                         res = solve(
                             temp_blurry_image,
@@ -412,6 +436,7 @@ def deblur_module(
                             step_factor=step,
                             lambd=lambd,
                             blind=False,
+                            cfg=level_cfg,
                         )
                         deblured_image = res.u
 

@@ -11,9 +11,11 @@ it (ics_tpu/models/rl_mm.py:598-600).  Checking less often would change the
 outer count.
 
 Inner loop, per outer iteration: on CUDA, the one-launch kernel K2
-(ops/cuda_solver.py) for windows inside the JAX package's bound, else the
-op-level loop on K1 convolutions and the K3 PSF gradient; on the CPU, the
-op-level loop on the plain twins.
+(ops/cuda_solver.py) where the JAX package ran its one-launch kernel
+(float32, unguarded, no TV, window inside its bound); else the op-level loop
+on the convolution dispatch (K1, K4s under ``conv_precision='high'``, K4 for
+bf16 operands), the K3 PSF gradient (float32 blind solves) and the K5 TV
+stencil (``use_tv``); on the CPU, the op-level loop on the plain twins.
 
 State inside the solver is planar (C, H, W) and contiguous; the public
 functions take and return the JAX package's (H, W, C) layout.
@@ -22,6 +24,7 @@ functions take and return the JAX package's (H, W, C) layout.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -31,25 +34,46 @@ from ics_tpu_torch.ops.conv import _autocorrelate_planar, conv_planar
 from ics_tpu_torch.ops.cuda_correlate import psf_gradient_planar
 from ics_tpu_torch.ops.cuda_solver import fits, inner_loop_ops, inner_loop_planar
 from ics_tpu_torch.ops.reductions import whiteness_weights
+from ics_tpu_torch.ops.tv import tv_auto_planar
 
 __all__ = ["richardson_lucy_MM", "RLConfig", "RLResult", "print_solver_report"]
+
+_EPS_BLIND = 1e-2  # ref lib/deconvolution.pyx:435
+_EPS_NONBLIND = 1e-6  # ref lib/deconvolution.pyx:437
+_TV_NORMS = {"channel": False, "collab": "sup", "collab_l2": "l2"}
 
 
 @dataclasses.dataclass(frozen=True)
 class RLConfig:
-    """Solver options beyond the reference's kwarg surface.
+    """Solver options beyond the reference's kwarg surface, with the JAX
+    package's names and meanings (ics_tpu/models/rl_mm.py:52-187).
 
-    The fields keep the JAX package's names.  Only parity mode is ported:
-    ``use_tv``, a ``conv_precision`` other than 'exact', a ``dtype`` other
-    than 'float32' and ``dof_guard=True`` raise ``NotImplementedError``
-    (ROADMAP "Modules to port", items 6 and 7).
+    ``conv_method`` other than 'auto' raises ``NotImplementedError``: the
+    port picks each convolution's backend from its dtype, precision and
+    size (ROADMAP "Not ported, on purpose").
     """
 
-    use_tv: bool = False
+    use_tv: bool = False  # False = as-checked-in parity; True = intended MM math
+    # 'auto' | 'xla' | 'pallas', for API parity: every TV stencil runs K5
+    # on CUDA tensors and its plain twin on CPU ones
+    tv_method: str = "auto"
+    tv_norm: str = "channel"  # 'channel' | 'collab' | 'collab_l2'
+    conv_method: str = "auto"
+    # 'exact': float32 convs; 'high': f32 convs of 81-961 taps through the
+    # bf16x3 split kernel K4s (about 1e-6 relative, not bit parity);
+    # 'fast': the JAX package's single-pass MXU convs, exact f32 here (its
+    # own stencil and Pallas paths are exact f32 too)
     conv_precision: str = "exact"
+    # 'float32' (parity) | 'mixed' (non-blind solves: bf16 convs through
+    # K4, f32 iterate and incremental f32 residual) | 'bfloat16' (all bf16)
     dtype: str = "float32"
+    # blind PSF gradient: 'auto' and 'pallas' = K3 for float32 solves,
+    # 'conv' = the FFT convolution (the only path in bf16)
+    psf_grad: str = "auto"
     # Record per-outer-iteration (M_r, Hu, varu) in RLResult.trajectory.
     record_metrics: bool = False
+    # DoF guard: dof = 1 where gradu + image == 0, and dof <= 1.  None =
+    # auto: on for 'mixed' and 'bfloat16', off for 'float32'.
     dof_guard: bool | None = None
     # Opt-in whiteness-plateau stop for non-blind solves: stop once M_r has
     # not improved by a cumulative relative ``early_stop`` over
@@ -62,22 +86,6 @@ class RLConfig:
     order: int = 2
     priority: float = 0.0
     refocus: bool = False
-
-    def check_ported(self) -> None:
-        if self.use_tv:
-            raise NotImplementedError(
-                "use_tv is not ported yet (ROADMAP 'Modules to port', item 7)"
-            )
-        if self.conv_precision != "exact" or self.dtype != "float32":
-            raise NotImplementedError(
-                f"conv_precision={self.conv_precision!r} / dtype="
-                f"{self.dtype!r}: only exact float32 is ported "
-                "(ROADMAP 'Modules to port', item 6)"
-            )
-        if self.dof_guard:
-            raise NotImplementedError(
-                "dof_guard is not ported yet (ROADMAP 'Modules to port', item 6)"
-            )
 
 
 @dataclasses.dataclass
@@ -148,6 +156,14 @@ def _solve(
     iterations,
     blind,
     correlation,
+    use_tv=False,
+    tv_method="auto",
+    tv_norm="channel",
+    conv_method="auto",
+    conv_precision="exact",
+    psf_grad="auto",
+    dtype="float32",
+    dof_guard=None,
     early_stop=0.0,
     early_stop_patience=10,
     use_stopping=True,
@@ -156,23 +172,61 @@ def _solve(
     """One solve on (H, W, C) tensors of one device; returns
     (u_out, u_full, psf, image, stats, hist) as the JAX ``_solve`` does."""
     exact_f32()
+    if conv_precision not in ("exact", "high", "fast"):
+        raise ValueError(
+            f"unknown conv_precision {conv_precision!r} "
+            "(use 'exact', 'high' or 'fast')"
+        )
+    if tv_norm not in _TV_NORMS:
+        raise ValueError(
+            f"unknown tv_norm {tv_norm!r} (use 'channel', 'collab' or"
+            " 'collab_l2')"
+        )
+    if dtype not in ("float32", "mixed", "bfloat16"):
+        raise ValueError(f"unknown dtype {dtype!r} (use 'float32', 'mixed' or 'bfloat16')")
+    if psf_grad not in ("auto", "pallas", "conv"):
+        raise ValueError(f"unknown psf_grad {psf_grad!r} (use 'auto', 'pallas' or 'conv')")
+    if conv_method != "auto":
+        raise NotImplementedError(
+            f"conv_method={conv_method!r}: the port picks each convolution's "
+            "backend from its dtype, precision and size (ROADMAP, 'Not "
+            "ported, on purpose')"
+        )
     dev = u.device
     f32 = torch.float32
-    image = _planar(image.to(f32))
-    u = _planar(u.to(f32))
-    psf = _planar(psf.to(f32))
+    # mixed precision applies to non-blind solves (rl_mm.py:347-366)
+    mixed = dtype == "mixed" and not blind
+    compute = torch.bfloat16 if dtype == "bfloat16" else f32
+    guard = dof_guard if dof_guard is not None else (mixed or compute != f32)
+    epsilon = _EPS_BLIND if blind else _EPS_NONBLIND
+    image = _planar(image.to(compute))
+    u = _planar(u.to(compute))
+    psf = _planar(psf.to(compute))
     _, m, n = image.shape
     _, u_m, u_n = u.shape
     pad = (u_m - m) // 2
     weights = torch.as_tensor(weights, dtype=f32, device=dev)
 
-    if dev.type == "cuda" and fits(u_m, u_n):
-        inner = inner_loop_planar
+    if (dev.type == "cuda" and fits(u_m, u_n) and not use_tv and not guard
+            and compute == f32 and not mixed):
+        def inner(u, image, psf, **kw):
+            return *inner_loop_planar(u, image, psf, **kw), image
     else:
-        # the op loop: K1 and K3 on CUDA tensors, their twins on CPU ones
+        conv = functools.partial(
+            conv_planar, precision="bf16x3" if conv_precision == "high" else "exact"
+        )
+        if psf_grad != "conv" and compute == f32:
+            grad = psf_gradient_planar  # K3 on CUDA tensors
+        else:
+            grad = lambda u, err: conv(torch.flip(u, dims=(1, 2)), err, "valid")
+        collab = _TV_NORMS[tv_norm]
+        tv = (lambda a, norm: tv_auto_planar(a, epsilon, 2, norm, tv_method, collab)
+              ) if use_tv else None
+
         def inner(u, image, psf, **kw):
             return inner_loop_ops(
-                u, image, psf, conv=conv_planar, psf_grad=psf_gradient_planar, **kw
+                u, image, psf, conv=conv, psf_grad=grad, guard=guard,
+                mixed=mixed, tv=tv, **kw
             )
 
     zero = torch.zeros((), dtype=f32, device=dev)
@@ -186,14 +240,14 @@ def _solve(
     win = (bottom - top) * (right - left) * 3
 
     while it < iterations and not stop:
-        u, psf, error = inner(
+        u, psf, error, image = inner(
             u, image, psf, step_factor=step_factor, lambd=lambd, blind=blind,
             correlation=correlation,
         )
 
         if use_stopping:
             # residual whiteness (Almeida & Figueiredo; ref :620-654)
-            patch = error[:, top:bottom, left:right]
+            patch = error[:, top:bottom, left:right].float()
             test = (patch - torch.mean(patch)) / torch.std(patch, correction=0)
             test = test / torch.amax(torch.abs(test))
             ac = _autocorrelate_planar(test)
@@ -219,14 +273,15 @@ def _solve(
             m_r, m_r_prev = m_r_new, m_r_prev_new
 
         if record:
-            u_win = u[:, top + pad : bottom - pad, left + pad : right - pad]
-            err_win = error[:, top:bottom, left:right]
+            u_win = u[:, top + pad : bottom - pad, left + pad : right - pad].float()
+            err_win = error[:, top:bottom, left:right].float()
             hist["M_r"].append(m_r)
             hist["Hu"].append(torch.sum(err_win**2) / win)
             hist["varu"].append(torch.std(u_win, correction=0) ** 2)
         it += 1
 
     # final stats over the mask window (ref :600-601)
+    u, psf, image, error = u.float(), psf.float(), image.float(), error.float()
     u_win = u[:, top + pad : bottom - pad, left + pad : right - pad]
     varu = torch.std(u_win, correction=0) ** 2
     err_win = error[:, top:bottom, left:right]
@@ -279,7 +334,6 @@ def richardson_lucy_MM(
     cfg = config or RLConfig(
         p=p, norm=norm, order=order, priority=priority, refocus=refocus
     )
-    cfg.check_ported()
     dev = resolve_device(device)
     as_t = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)
     u_out, u_full, psf_out, image_out, stats, hist = _solve(
@@ -288,8 +342,11 @@ def richardson_lucy_MM(
         top=int(top), bottom=int(bottom), left=int(left), right=int(right),
         tau=float(tau), step_factor=float(step_factor), lambd=float(lambd),
         iterations=int(iterations), blind=bool(blind),
-        correlation=bool(correlation), early_stop=cfg.early_stop,
-        early_stop_patience=cfg.early_stop_patience,
+        correlation=bool(correlation), use_tv=cfg.use_tv,
+        tv_method=cfg.tv_method, tv_norm=cfg.tv_norm,
+        conv_method=cfg.conv_method, conv_precision=cfg.conv_precision,
+        psf_grad=cfg.psf_grad, dtype=cfg.dtype, dof_guard=cfg.dof_guard,
+        early_stop=cfg.early_stop, early_stop_patience=cfg.early_stop_patience,
         record=cfg.record_metrics,
     )
     result = RLResult(

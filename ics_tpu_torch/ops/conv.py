@@ -1,13 +1,22 @@
 """2-D convolution with exact scipy.signal.convolve ``valid|same|full``
 semantics (counterpart of ics_tpu/ops/conv.py).
 
-Two backends, picked by kernel size:
+Backends, picked by dtype, precision and kernel size (the counterpart of
+``_dispatch``, ics_tpu/ops/conv.py:367-450); each hand-written kernel runs on
+CUDA tensors and its plain twin on CPU tensors:
 
-* ``ops/cuda_conv.py`` (K1) for every per-channel convolution with taps up
-  to 31x31: the hand-written CUDA kernel on CUDA tensors, its plain twin on
-  CPU tensors.  The JAX package sends 81-961 taps to its Pallas kernel and
-  smaller ones to XLA stencils; the port sends them all to K1.
-* ``torch.fft`` above that (``_conv_fft``), the JAX ``fft`` backend.
+* float32 with ``precision="bf16x3"`` and 81-961 taps: K4s
+  (``ops/cuda_conv_mma.py``), the hi/lo-split tensor-core kernel.  That is
+  where the JAX package ran its split kernel on the TPU, so ``high``
+  deviates from exact f32 where it did there.
+* other float32 convolutions with taps up to 31x31: K1 (``ops/cuda_conv.py``).
+  The JAX package sends 81-961 taps to its Pallas kernel and smaller ones
+  to XLA stencils; the port sends them all to K1.
+* bfloat16 convolutions with taps up to 31x31: K4 (``ops/cuda_conv_mma.py``),
+  f32 accumulation and one rounding.  A stated deviation: JAX's bf16
+  stencil under 81 taps rounds its partial sums to bf16.
+* ``torch.fft`` above 31 taps a side (``_conv_fft``), the JAX ``fft``
+  backend: float32 math, cast back to the input dtype.
 
 ``fft_autocorrelate_same`` is the residual-whiteness autocovariance of the
 solver's stopping rule.
@@ -72,7 +81,10 @@ def _next_fast_len(n: int) -> int:
 
 
 def _conv_fft(a: torch.Tensor, k: torch.Tensor, mode: str) -> torch.Tensor:
-    """Batched FFT convolution. a: (C, H, W); k: (C, MK, NK)."""
+    """Batched FFT convolution. a: (C, H, W); k: (C, MK, NK).  The FFTs run
+    in float32; the result is cast back to ``a``'s dtype (conv.py:161-181)."""
+    dtype = a.dtype
+    a, k = a.float(), k.float()
     _, m, n = a.shape
     _, mk, nk = k.shape
     mf, nf = m + mk - 1, n + nk - 1
@@ -82,16 +94,31 @@ def _conv_fft(a: torch.Tensor, k: torch.Tensor, mode: str) -> torch.Tensor:
     full = torch.fft.irfft2(fa * fk, s=s, dim=(-2, -1))[..., :mf, :nf]
     ym, xn = _out_shape(m, mk, mode), _out_shape(n, nk, mode)
     oy, ox = (mf - ym) // 2, (nf - xn) // 2
-    return full[:, oy : oy + ym, ox : ox + xn].contiguous()
+    return full[:, oy : oy + ym, ox : ox + xn].to(dtype).contiguous()
 
 
-def conv_planar(a: torch.Tensor, k: torch.Tensor, mode: str) -> torch.Tensor:
-    """Per-channel convolution of planar a: (C, H, W) with k: (C, MK, NK)."""
-    from ics_tpu_torch.ops import cuda_conv
+_SPLIT_MIN_TAPS = 9 * 9  # ics_tpu/ops/conv.py:40 _MXU_THRESHOLD_TAPS
 
-    if max(k.shape[1], k.shape[2]) <= cuda_conv.MAX_TAPS_SIDE:
-        return cuda_conv.conv_planar(a, k, mode)
-    return _conv_fft(a, k, mode)
+
+def conv_planar(a: torch.Tensor, k: torch.Tensor, mode: str,
+                precision: str = "exact") -> torch.Tensor:
+    """Per-channel convolution of planar a: (C, H, W) with k: (C, MK, NK).
+
+    ``precision``: 'exact', or 'bf16x3' for the split kernel K4s on float32
+    operands of 81 taps or more (what ``conv_precision='high'`` selects).
+    """
+    from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma
+
+    if precision not in ("exact", "bf16x3"):
+        raise ValueError(f"unknown precision {precision!r} (use 'exact' or 'bf16x3')")
+    mk, nk = k.shape[1], k.shape[2]
+    if max(mk, nk) > cuda_conv.MAX_TAPS_SIDE:
+        return _conv_fft(a, k, mode)
+    if a.dtype == torch.bfloat16:
+        return cuda_conv_mma.conv_bf16(a, k, mode)
+    if precision == "bf16x3" and mk * nk >= _SPLIT_MIN_TAPS:
+        return cuda_conv_mma.conv_split(a, k, mode)
+    return cuda_conv.conv_planar(a, k, mode)
 
 
 def convolve2d(a: torch.Tensor, k: torch.Tensor, mode: str = "same") -> torch.Tensor:

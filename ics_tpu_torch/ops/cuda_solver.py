@@ -1,9 +1,11 @@
 """K2: the RL-MM inner loop in one kernel launch (csrc/inner_loop.cu), and
-its plain twin, the op-level inner loop the solver runs on larger windows.
+the op-level inner loop: K2's plain twin in parity mode, and what the solver
+runs on larger windows and in the modes K2 does not take (guard, mixed,
+bfloat16, use_tv).
 
 Counterpart of ics_tpu/ops/pallas_solver.py (``inner_loop_pallas``) and of
-the ``lax.scan`` inner loop of ics_tpu/models/rl_mm.py in parity mode.  All
-arrays are planar (C, H, W) float32.  On CPU tensors ``inner_loop_planar``
+the ``lax.scan`` inner loop of ics_tpu/models/rl_mm.py.  All arrays are
+planar (C, H, W); K2 takes float32 only.  On CPU tensors ``inner_loop_planar``
 runs the plain twin; on CUDA tensors it launches the kernel or raises.
 """
 
@@ -36,13 +38,20 @@ def fits(u_m: int, u_n: int) -> bool:
 
 
 def inner_loop_ops(u, image, psf, *, step_factor, lambd, blind, correlation,
-                   conv, psf_grad):
-    """The five inner iterations as separate tensor ops.
+                   conv, psf_grad, guard=False, mixed=False, tv=None):
+    """One outer iteration's five inner iterations as separate tensor ops
+    (ics_tpu/models/rl_mm.py:377-531).
 
     ``conv(a, k, mode)`` and ``psf_grad(u, err)`` are the planar convolution
-    and PSF-gradient backends.  Returns (u', psf', error): ``error`` is the
-    last residual (post-update when blind), the one the whiteness metric
-    reads.
+    and PSF-gradient backends; the dtype of ``u``, ``image`` and ``psf`` is
+    the compute dtype.  ``guard`` is the DoF guard (RLConfig.dof_guard).
+    ``mixed``: float32 state with bf16 convolutions and the residual carried
+    in f32, updated by the bf16 convolution of each step's increment and
+    refreshed in f32 here, at the start of the outer.  ``tv(a, norm) ->
+    (magnitude, div)`` turns on the ``use_tv`` regularizer and the
+    denoising of ``image``.  Returns (u', psf', error, image'): ``error`` is
+    the last residual (post-update when blind), the one the whiteness
+    metric reads.
     """
     c, u_m, u_n = u.shape
     _, m, n = image.shape
@@ -52,23 +61,64 @@ def inner_loop_ops(u, image, psf, *, step_factor, lambd, blind, correlation,
     inv_un = 1.0 / (u_m * u_n)
     ut = u
     psf_rot = torch.flip(psf, dims=(1, 2)).contiguous()
+    # mixed: bf16 convolution operands, f32 results (rl_mm.py:368-375)
+    lo = (lambda a: a.to(torch.bfloat16)) if mixed else (lambda a: a)
+    hi = (lambda a: a.float()) if mixed else (lambda a: a)
+    if tv is not None:
+        tv_ut_l1, _ = tv(ut, 1)
+        tv_ut_l2, _ = tv(ut, 2)
     error = None
-    for _ in range(INNER_ITER):
-        # 1. residual; 2. correlate it with the PSF
+    if mixed:
         error = conv(u, psf, "valid") - image
-        gradu = conv(error, psf_rot, "full")
-        # 4. depth-of-field weights from the raw correlation (no epsilon)
+        delta = torch.zeros_like(u)
+    for _ in range(INNER_ITER):
+        u_start = u
+        # 1. residual (mixed: by linearity, plus the increment's conv);
+        # 2. correlate it with the PSF
+        if mixed:
+            error = error + hi(conv(lo(delta), lo(psf), "valid"))
+        else:
+            error = conv(u, psf, "valid") - image
+        gradu = hi(conv(lo(error), lo(psf_rot), "full"))
+        # 3. TV stencils of u (order 2, as at the reference's call sites)
+        if tv is not None:
+            tv_u_l1, _ = tv(u, 1)
+            tv_u_l2, div = tv(u, 2)
+        # 4. depth-of-field weights from the raw correlation (no epsilon);
+        # the guard keeps the observed pixel where the denominator is 0
+        # and caps dof at 1
         gcrop = gradu[:, pad : pad + m, pad : pad + n]
-        dof = ((gcrop - image) / (gcrop + image)) ** 2
+        if guard:
+            den = gcrop + image
+            zero = den == 0.0
+            dof = torch.where(zero, 1.0, ((gcrop - image) / torch.where(zero, 1.0, den)) ** 2)
+        else:
+            dof = ((gcrop - image) / (gcrop + image)) ** 2
         if not blind:
             dof = dof / lambd
-        # 5. parity-mode regularization; 6. per-channel step over the whole
-        # padded window
-        greg = lambd * gradu + (u - ut) / 2.0
+        if guard:
+            dof = torch.clamp(dof, max=1.0)
+        # 5. regularization: parity mode, or the live/dead MM step of use_tv
+        if tv is not None:
+            live = (tv_ut_l1 != 0.0) & (tv_u_l1 != 0.0)
+            reg = div / tv_u_l1 / tv_ut_l1 / 2.0 + div / tv_u_l2 / tv_ut_l2 / 2.0
+            greg = torch.where(
+                live, reg + lambd * gradu + (u - ut) / 4.0, lambd * gradu + (u - ut) / 2.0
+            )
+        else:
+            greg = lambd * gradu + (u - ut) / 2.0
+        # 6. per-channel step over the whole padded window
         dt = sf * (torch.amax(u, dim=(1, 2)) + inv_un) / (
             torch.amax(torch.abs(greg), dim=(1, 2)) + 1e-15
         )
         u = u - dt[:, None, None] * greg
+        # 7. TV-denoise the observed image (use_tv only)
+        if tv is not None:
+            denoise = torch.where(live, reg, 0.0)
+            dt_img = sf * (torch.amax(image, dim=(1, 2)) + 1.0 / (m * n)) / (
+                torch.amax(torch.abs(denoise), dim=(1, 2)) + 1e-15
+            )
+            image = image - dt_img[:, None, None] * denoise[:, pad : pad + m, pad : pad + n] / lambd
         # 8. keep the blurry image where deblurring failed (inner crop only)
         crop = u[:, pad : pad + m, pad : pad + n]
         u[:, pad : pad + m, pad : pad + n] = (1.0 - dof) * crop + dof * image
@@ -85,17 +135,20 @@ def inner_loop_ops(u, image, psf, *, step_factor, lambd, blind, correlation,
             psf = torch.clamp(psf, min=0.0)
             psf = (psf / torch.sum(psf, dim=(1, 2), keepdim=True)).contiguous()
             psf_rot = torch.flip(psf, dims=(1, 2)).contiguous()
-    return u, psf, error
+        if mixed:
+            delta = u - u_start
+    return u, psf, error, image
 
 
 def inner_loop_plain(u, image, psf, *, step_factor, lambd, blind, correlation):
-    """Plain PyTorch twin of K2: the op loop on the plain convolution and
-    PSF-gradient twins."""
-    return inner_loop_ops(
+    """Plain PyTorch twin of K2: the parity-mode op loop on the plain
+    convolution and PSF-gradient twins.  Returns (u', psf', error)."""
+    u, psf, error, _ = inner_loop_ops(
         u, image, psf, step_factor=step_factor, lambd=lambd, blind=blind,
         correlation=correlation, conv=conv_planar_plain,
         psf_grad=psf_gradient_plain,
     )
+    return u, psf, error
 
 
 @functools.lru_cache(maxsize=None)

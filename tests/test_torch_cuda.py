@@ -10,7 +10,7 @@ card and no JAX; tests/conftest.py imports JAX, so skip it there:
 import pytest
 import torch
 
-from ics_tpu_torch.ops import cuda_conv, cuda_correlate, cuda_solver
+from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma, cuda_correlate, cuda_solver, cuda_tv
 
 
 def _need_gpu():
@@ -64,3 +64,50 @@ def test_k2_kernel_matches_twin_on_gpu(blind, corr):
     for g, a, r in zip(got, again, ref):
         assert float((g - r).abs().max()) <= 1e-5 * max(float(r.abs().max()), 1.0)
         assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["valid", "same", "full"])
+@pytest.mark.parametrize("mk,nk", [(3, 3), (9, 9), (9, 5), (31, 31)])
+def test_k4s_kernel_matches_twin_on_gpu(mode, mk, nk):
+    dev = _need_gpu()
+    a = torch.rand((3, 77, 141), device=dev)
+    k = torch.rand((3, mk, nk), device=dev)
+    before = cuda_conv_mma.split_launches
+    got = cuda_conv_mma.conv_split(a, k, mode)
+    assert cuda_conv_mma.split_launches == before + 1
+    ref = cuda_conv_mma.conv_split_plain(a, k, mode)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(got, cuda_conv_mma.conv_split(a, k, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["valid", "same", "full"])
+@pytest.mark.parametrize("mk,nk", [(3, 3), (7, 7), (9, 5), (31, 31)])
+def test_k4_kernel_matches_twin_on_gpu(mode, mk, nk):
+    dev = _need_gpu()
+    a = (torch.rand((3, 77, 141), device=dev) + 0.1).bfloat16()
+    k = (torch.rand((3, mk, nk), device=dev) + 0.1).bfloat16()
+    before = cuda_conv_mma.bf16_launches
+    got = cuda_conv_mma.conv_bf16(a, k, mode)
+    assert cuda_conv_mma.bf16_launches == before + 1
+    ref = cuda_conv_mma.conv_bf16_plain(a, k, mode).float()
+    # within one bf16 ulp of each (positive) value
+    ulp = torch.exp2(torch.floor(torch.log2(ref)) - 7)
+    assert bool(((got.float() - ref).abs() <= ulp).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order,norm", [(1, 1), (1, 2), (2, 1), (2, 2)])
+def test_k5_kernel_matches_twin_on_gpu(order, norm, dtype):
+    dev = _need_gpu()
+    u = torch.rand((3, 61, 83), device=dev).to(dtype)
+    before = cuda_tv.launches
+    got = cuda_tv.tv_planar(u, 1e-2, order, norm)
+    assert cuda_tv.launches == before + 1
+    ref = cuda_tv.tv_planar_plain(u, 1e-2, order, norm)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype
+        # the same IEEE operations in the same order: bitwise
+        assert torch.equal(g, r)

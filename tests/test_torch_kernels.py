@@ -10,12 +10,18 @@ import pytest
 import torch
 
 from ics_tpu.ops.pallas_conv import conv_rgb_pallas
+from ics_tpu.ops.pallas_conv_mxu import conv_rgb_pallas_mxu
 from ics_tpu.ops.pallas_correlate import correlate_psf_valid as j_corr_valid
 from ics_tpu.ops.pallas_correlate import psf_gradient as j_psf_gradient
 from ics_tpu.ops.pallas_solver import fits_vmem, inner_loop_pallas
+from ics_tpu.ops.pallas_tv import tv_op_pallas
+from ics_tpu.ops.tv import tv_op as j_tv_op
+from ics_tpu.ops.tv import tv_op_auto as j_tv_op_auto
 from ics_tpu.ops.windows import uniform_kernel
 
-from ics_tpu_torch.ops import cuda_conv, cuda_correlate, cuda_solver
+from ics_tpu_torch.ops import conv as tconv
+from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma, cuda_correlate, cuda_solver, cuda_tv
+from ics_tpu_torch.ops import tv as ttv
 
 RNG = np.random.default_rng(43)
 
@@ -30,12 +36,14 @@ def _hwc(t):
 
 @pytest.fixture
 def zero_launches():
-    mods = (cuda_conv, cuda_correlate, cuda_solver)
+    mods = (cuda_conv, cuda_correlate, cuda_solver, cuda_tv)
     for mod in mods:
         mod.launches = 0
+    cuda_conv_mma.split_launches = cuda_conv_mma.bf16_launches = 0
     yield
     # CPU tensors take the plain twins: no kernel may have been launched
-    assert [mod.launches for mod in mods] == [0, 0, 0]
+    assert [mod.launches for mod in mods] == [0, 0, 0, 0]
+    assert (cuda_conv_mma.split_launches, cuda_conv_mma.bf16_launches) == (0, 0)
 
 
 @pytest.mark.parametrize("mode", ["valid", "same", "full"])
@@ -84,6 +92,97 @@ def test_k2_twin_matches_pallas_inner_loop(blind, corr, zero_launches):
         np.testing.assert_array_equal(p[..., 0], p[..., 1])
 
 
+@pytest.mark.parametrize("mode", ["valid", "same", "full"])
+@pytest.mark.parametrize("mk,nk", [(9, 9), (9, 5)])
+def test_k4s_twin_matches_pallas_split_kernel(mode, mk, nk, zero_launches):
+    a = RNG.random((40, 150, 3)).astype(np.float32)
+    k = RNG.random((mk, nk, 3)).astype(np.float32)
+    want = np.asarray(conv_rgb_pallas_mxu(a, jnp.asarray(k), mode, precision="bf16x3",
+                                          interpret=True))
+    got = _hwc(cuda_conv_mma.conv_split(_planar(a), _planar(k), mode))
+    assert got.shape == want.shape
+    # the same bf16 products; f32 sums in another order
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("mode", ["valid", "same", "full"])
+@pytest.mark.parametrize("mk,nk", [(9, 9), (9, 5)])
+def test_k4_twin_matches_pallas_bf16_kernel(mode, mk, nk, zero_launches):
+    a = RNG.random((40, 150, 3)).astype(np.float32)
+    k = RNG.random((mk, nk, 3)).astype(np.float32)
+    want = np.asarray(conv_rgb_pallas_mxu(jnp.asarray(a, jnp.bfloat16),
+                                          jnp.asarray(k, jnp.bfloat16), mode, interpret=True))
+    got = cuda_conv_mma.conv_bf16(_planar(a).to(torch.bfloat16),
+                                  _planar(k).to(torch.bfloat16), mode)
+    assert got.dtype == torch.bfloat16
+    got = _hwc(got.float())
+    want = want.astype(np.float32)
+    # both round one f32 sum to bf16; the sum orders differ, so a value may
+    # land on the neighbouring bf16: within one bf16 ulp of each value
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want))) - 7)
+    assert np.all(np.abs(got - want) <= ulp)
+
+
+def test_split_hi_lo_matches_jax():
+    from ics_tpu.ops.pallas_conv_mxu import _split_hi_lo
+
+    x = RNG.standard_normal(4096).astype(np.float32)
+    jh, jl = (np.asarray(v, np.float32) for v in _split_hi_lo(jnp.asarray(x)))
+    th, tl = cuda_conv_mma.split_hi_lo(torch.from_numpy(x))
+    np.testing.assert_array_equal(th.float().numpy(), jh)
+    np.testing.assert_array_equal(tl.float().numpy(), jl)
+
+
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("norm", [1, 2])
+def test_k5_twin_matches_jax_tv(order, norm, zero_launches):
+    u = RNG.random((37, 29, 3)).astype(np.float32)
+    eps = 1e-2
+    got_tv, got_div = (_hwc(t) for t in cuda_tv.tv_planar(_planar(u), eps, order, norm))
+    want_tv, want_div = (np.asarray(t) for t in j_tv_op(jnp.asarray(u), eps, order, norm))
+    pal_tv, pal_div = (np.asarray(t) for t in tv_op_pallas(
+        jnp.asarray(u), eps, order, norm, tile_h=16, interpret=True))
+    # the same ops in the same order as tv_op: the divergence and the L1
+    # magnitude are bitwise equal; XLA evaluates the L2 magnitude's
+    # x*x + y*y + eps^2 in its own way (one ulp)
+    np.testing.assert_array_equal(got_div, want_div)
+    if norm == 1:
+        np.testing.assert_array_equal(got_tv, want_tv)
+    for got, want in [(got_tv, want_tv), (got_tv, pal_tv), (got_div, pal_div)]:
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("collab", [False, "sup", "l2"])
+@pytest.mark.parametrize("method", ["auto", "pallas"])
+def test_tv_op_auto_couplings_match_jax(collab, method, zero_launches):
+    u = RNG.random((23, 31, 3)).astype(np.float32)
+    want = j_tv_op_auto(jnp.asarray(u), 1e-6, order=2, norm=2, method=method, collab=collab)
+    got = ttv.tv_op_auto(torch.from_numpy(u), 1e-6, order=2, norm=2, method=method,
+                         collab=collab)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert np.abs(g.numpy() - np.asarray(w)).max() <= 1e-6 * np.abs(np.asarray(w)).max()
+
+
+def test_conv_dispatch_routes_by_dtype_and_precision(monkeypatch):
+    calls = []
+    for mod, name in [(cuda_conv, "conv_planar"), (cuda_conv_mma, "conv_split"),
+                      (cuda_conv_mma, "conv_bf16")]:
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, fn=fn, name=name: calls.append(name) or fn(*a))
+    a = torch.rand((3, 40, 40))
+    k9, k5, k33 = (torch.rand((3, s, s)) for s in (9, 5, 33))
+    tconv.conv_planar(a, k9, "same", precision="bf16x3")  # 81 taps: K4s
+    tconv.conv_planar(a, k5, "same", precision="bf16x3")  # 25 taps: exact, K1
+    tconv.conv_planar(a, k9, "same")
+    tconv.conv_planar(a.bfloat16(), k5.bfloat16(), "same")  # every bf16 conv: K4
+    out = tconv.conv_planar(a.bfloat16(), k33.bfloat16(), "valid")  # FFT in f32
+    assert out.dtype == torch.bfloat16 and out.shape == (3, 8, 8)
+    assert calls == ["conv_split", "conv_planar", "conv_planar", "conv_bf16"]
+    with pytest.raises(ValueError, match="unknown precision"):
+        tconv.conv_planar(a, k9, "same", precision="bf16x6")
+
+
 @pytest.mark.parametrize("side", [131, 185, 261, 262, 330, 331, 369, 520])
 def test_k2_window_bound_is_the_jax_bound(side):
     assert cuda_solver.fits(side, side) == fits_vmem(side, side)
@@ -103,3 +202,19 @@ def test_wrappers_reject_bad_input():
         cuda_correlate.psf_gradient_planar(torch.zeros((3, 5, 5)), torch.zeros((3, 6, 6)))
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_conv.conv_planar(a.to("meta"), torch.zeros((3, 3, 3), device="meta"), "same")
+    with pytest.raises(TypeError, match="float32"):
+        cuda_conv_mma.conv_split(a.bfloat16(), torch.zeros((3, 3, 3), dtype=torch.bfloat16), "same")
+    with pytest.raises(TypeError, match="bfloat16"):
+        cuda_conv_mma.conv_bf16(a, torch.zeros((3, 3, 3)), "same")
+    with pytest.raises(ValueError, match="taps up to"):
+        cuda_conv_mma.conv_split(torch.zeros((3, 40, 40)), torch.zeros((3, 33, 3)), "same")
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_conv_mma.conv_split(a.to("meta"), torch.zeros((3, 3, 3), device="meta"), "same")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cuda_tv.tv_planar(a.double(), 1e-2)
+    with pytest.raises(ValueError, match="order"):
+        cuda_tv.tv_planar(a, 1e-2, order=3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_tv.tv_planar(a.to("meta"), 1e-2)
+    with pytest.raises(ValueError, match="unknown collab"):
+        ttv.tv_op_auto(torch.zeros((5, 5, 3)), 1e-2, collab="l1")

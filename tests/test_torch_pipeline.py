@@ -140,9 +140,6 @@ def test_same_value_errors_as_jax(kw, match):
         dict(mesh=object()),
         dict(solver="pam"),
         dict(solver="pd"),
-        dict(precision="mixed"),
-        dict(precision="high"),
-        dict(use_tv=True),
         dict(inner_loop="pallas"),
     ],
 )
@@ -151,6 +148,64 @@ def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         _quiet(ics_tpu_torch.deblur_module, FIXTURE, "x", blur_width=3,
                mask_size=31, iterations=1, verbose=False, device="cpu", **kw)
+
+
+NINE = _blocky(16, 8, 9)
+
+PRECISION_CASES = {
+    # (fixture, blur width, kwargs, SSIM bound against ics_tpu)
+    "mixed": (TWO_LEVEL, 5, dict(precision="mixed"), 0.999),
+    # blur 9: the 9x9 convolutions of the finest levels go through K4s
+    "high": (NINE, 9, dict(precision="high"), 0.999),
+    "fast": (TWO_LEVEL, 5, dict(precision="fast"), 0.98),
+    "use_tv collab": (TWO_LEVEL, 5, dict(use_tv=True, tv_norm="collab"), 0.999),
+}
+
+
+@pytest.mark.parametrize("name", list(PRECISION_CASES))
+def test_precision_and_tv_modes_match_jax(name):
+    pic, blur_width, kw, bound = PRECISION_CASES[name]
+    kw = dict(dict(mask_size=61, iterations=6, tolerance=10.0), **kw, verbose=False)
+    want = _quiet(ics_tpu.deblur_module, pic, "x", None, blur_width, **kw)
+    got = _quiet(ics_tpu_torch.deblur_module, pic, "x", None, blur_width, device="cpu", **kw)
+    assert got.dtype == np.uint16 and got.shape == want.shape
+    assert ssim(got / 65535.0, want / 65535.0) >= bound
+
+
+@pytest.mark.parametrize("precision", ["hybrid", "hybrid-high"])
+@pytest.mark.parametrize("min_pixels", [7921, 7922, 2_000_000])
+def test_hybrid_level_configs_match_jax(precision, min_pixels, monkeypatch):
+    """The per-level config rule of 'hybrid'/'hybrid-high', with the size
+    threshold moved onto the fixture's one coarse level (89x89 = 7921 px
+    before the safety pad): at 7921 it deviates, at 7922 and at the real
+    2 MP it does not.  Both pipelines must hand each solve the same dtype,
+    conv precision and guard."""
+    import ics_tpu.models.pipeline as jpipe
+
+    import ics_tpu_torch.models.pipeline as tpipe
+
+    seen = {}
+    for mod in (jpipe, tpipe):
+        monkeypatch.setattr(mod, "_HYBRID_MIN_PIXELS", min_pixels)
+        calls = seen.setdefault(mod.__name__, [])
+
+        def record(*a, _fn=mod.richardson_lucy_MM, _calls=calls, **kw):
+            cfg = kw["config"]
+            _calls.append((kw["blind"], tuple(a[0].shape[:2]), cfg.dtype,
+                           cfg.conv_precision, cfg.dof_guard))
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(mod, "richardson_lucy_MM", record)
+    kw = dict(mask_size=61, iterations=2, tolerance=10.0, precision=precision,
+              verbose=False)
+    _quiet(ics_tpu.deblur_module, TWO_LEVEL[:125, :125], "x", None, 5, **kw)
+    _quiet(ics_tpu_torch.deblur_module, TWO_LEVEL[:125, :125], "x", None, 5,
+           device="cpu", **kw)
+    got = seen[tpipe.__name__]
+    assert got == seen[jpipe.__name__]
+    (coarse,) = [c for c in got if not c[0] and c[1][0] < 125]
+    deviates = (coarse[1][0] - 2) * (coarse[1][1] - 2) >= min_pixels
+    assert (coarse[2:] != ("float32", "exact", None)) == deviates
 
 
 def test_pyramid_and_pad_helpers_match_jax():

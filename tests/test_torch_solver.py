@@ -116,17 +116,168 @@ def test_inputs_not_mutated_and_report_printed():
     assert "Stats : autocovariance" in buf.getvalue()
 
 
+@pytest.mark.parametrize("tv_norm", ["channel", "collab", "collab_l2"])
+@pytest.mark.parametrize("blind", [False, True])
+def test_use_tv_matches_jax(tv_norm, blind):
+    # blind solves stop when M_r rises whatever tau is; 4 outers stay short
+    # of that on this fixture, so both run the same count
+    args, kw = _args(tau=1e9, iterations=4, lambd=1000.0, blind=blind)
+    cfg = dict(use_tv=True, tv_norm=tv_norm)
+    a = jrl.richardson_lucy_MM(*args, config=jrl.RLConfig(**cfg), **kw)
+    b = trl.richardson_lucy_MM(*args, config=trl.RLConfig(**cfg), device="cpu", **kw)
+    assert (b.iterations, b.converged) == (a.iterations, a.converged) == (4, False)
+    # the level-2 class: u within a few e-6, the PSF and the TV-denoised
+    # image within 1e-6
+    np.testing.assert_allclose(b.u.numpy(), np.asarray(a.u), atol=5e-6)
+    np.testing.assert_allclose(b.psf.numpy(), np.asarray(a.psf), atol=1e-6)
+    np.testing.assert_allclose(b.image.numpy(), np.asarray(a.image), atol=1e-6)
+    assert not np.array_equal(b.image.numpy(), IMAGE)  # the denoise step ran
+    np.testing.assert_allclose(b.stats.numpy(), np.asarray(a.stats), rtol=1e-4)
+
+
+def _guard_run(pkg, img, u, psf, win, dtype, guard, lambd, iterations):
+    cfg = pkg.RLConfig(dtype=dtype, dof_guard=guard)
+    extra = {"device": "cpu"} if pkg is trl else {}
+    res = pkg.richardson_lucy_MM(img, u, psf, *win, 0.1, iterations=iterations,
+                                 step_factor=1e-3, lambd=lambd, blind=False,
+                                 config=cfg, verbose=False, **extra)
+    return np.asarray(res.u), res.M_r
+
+
+def test_dof_guard_closes_zero_denominator_like_jax():
+    # tests/test_solver.py:238-269: an exactly-zero region gives exact-zero
+    # DoF denominators even in f32
+    rng = np.random.default_rng(0)
+    img = np.zeros((64, 64, 3), np.float32)
+    img[20:40, 20:40] = rng.random((20, 20, 3)).astype(np.float32)
+    psf = np.ones((5, 5, 3), np.float32) / 25.0
+    u = np.pad(img, ((2, 2), (2, 2), (0, 0)), mode="edge")
+    run = lambda pkg, dtype, guard: _guard_run(pkg, img, u, psf, (5, 59, 5, 59),
+                                               dtype, guard, 1000, 8)
+    for pkg in (jrl, trl):
+        assert not np.isfinite(run(pkg, "mixed", False)[1])
+        assert not np.isfinite(run(pkg, "float32", None)[0]).all()
+        assert np.isfinite(run(pkg, "mixed", None)[0]).all()
+    got, want = run(trl, "float32", True)[0], run(jrl, "float32", True)[0]
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+def test_dof_guard_is_bitwise_identity_where_it_cannot_fire():
+    # tests/test_solver.py:272-295: no zero denominator and dof <= 1
+    rng = np.random.default_rng(3)
+    img = (0.1 + 0.8 * rng.random((48, 48, 3))).astype(np.float32)
+    psf = np.ones((3, 3, 3), np.float32) / 9.0
+    u = np.pad(img, ((1, 1), (1, 1), (0, 0)), mode="edge")
+    run = lambda pkg, guard: _guard_run(pkg, img, u, psf, (4, 44, 4, 44), "float32",
+                                        guard, 1e12, 6)[0]
+    np.testing.assert_array_equal(run(trl, True), run(trl, False))
+    np.testing.assert_allclose(run(trl, True), run(jrl, True), atol=1e-6)
+
+
+def test_dof_guard_clamps_near_zero_amplifier_like_jax():
+    # tests/test_solver.py:298-332: lambd=1 leaves dof undamped
+    rng = np.random.default_rng(7)
+    img = (0.1 + 0.8 * rng.random((48, 48, 3))).astype(np.float32)
+    psf = np.ones((3, 3, 3), np.float32) / 9.0
+    u = np.pad(img, ((1, 1), (1, 1), (0, 0)), mode="edge")
+    run = lambda pkg, guard: _guard_run(pkg, img, u, psf, (4, 44, 4, 44), "float32",
+                                        guard, 1.0, 6)[0]
+    unguarded, guarded = run(trl, False), run(trl, True)
+    assert np.nanmax(np.abs(unguarded)) > 2.0 or not np.isfinite(unguarded).all()
+    assert np.isfinite(guarded).all() and np.abs(guarded).max() < 1.5
+    np.testing.assert_allclose(guarded, run(jrl, True), atol=1e-5)
+
+
+def _crop_fixture():
+    """A structured 101x101 crop in [0.15, 0.9] (blocks, an edge ramp and
+    texture, blurred by a 7x7 Gaussian), gamma-decoded as the pipeline
+    does: the stand-in for the reference photo crop of
+    tests/test_solver.py:199-235."""
+    rng = np.random.default_rng(29)
+    m, mk = 101, 7
+    yy, xx = np.mgrid[0:m + 12, 0:m + 12] / (m + 12.0)
+    img = 0.3 + 0.3 * xx[..., None] + 0.1 * yy[..., None] + np.zeros((1, 1, 3))
+    for _ in range(12):
+        y0, x0 = rng.integers(0, m, 2)
+        h, w = rng.integers(8, 30, 2)
+        img[y0 : y0 + h, x0 : x0 + w] += rng.uniform(-0.25, 0.25, 3)
+    img += 0.03 * np.kron(rng.uniform(-1, 1, ((m + 12) // 4 + 1,) * 2 + (3,)),
+                          np.ones((4, 4, 1)))[: m + 12, : m + 12]
+    k = gaussian_kernel(mk, 1.5)
+    blurred = np.stack([sig.convolve(img[..., c], k, mode="valid") for c in range(3)], -1)
+    crop = (np.clip(blurred[:m, :m], 0.15, 0.9) ** (1 / 2.2)).astype(np.float32)
+    pad = mk // 2
+    u0 = np.pad(crop, ((pad, pad), (pad, pad), (0, 0)), mode="edge").astype(np.float32)
+    psf0 = np.dstack([uniform_kernel(mk)] * 3).astype(np.float32)
+    return (crop, u0, psf0, pad + 1, m - pad - 1, pad + 1, m - pad - 1)
+
+
+CROP = _crop_fixture()
+
+
+@pytest.mark.parametrize("tau,iterations", [(10.0, 25), (0.0, 30)])
+def test_mixed_matches_jax_mixed(tau, iterations):
+    from ics_tpu.utils.metrics import ssim
+
+    # tau=10: a fixed 25 outers; tau=0: the real stopping rule
+    kw = dict(tau=tau, iterations=iterations, step_factor=1e-3, lambd=10000.0, blind=False)
+    a = jrl.richardson_lucy_MM(*CROP, config=jrl.RLConfig(dtype="mixed"), **kw)
+    b = trl.richardson_lucy_MM(*CROP, config=trl.RLConfig(dtype="mixed"), device="cpu", **kw)
+    assert (b.iterations, b.converged) == (a.iterations, a.converged)
+    assert ssim(b.u.numpy(), np.asarray(a.u), data_range=1.0) >= 0.999
+
+
+@pytest.mark.parametrize("blind", [False, True])
+def test_bfloat16_close_to_f32(blind):
+    from ics_tpu.utils.metrics import ssim
+
+    # tests/test_solver.py:128-143
+    args, kw = _args(tau=0.0, iterations=6, lambd=1000.0, blind=blind)
+    f32 = trl.richardson_lucy_MM(*args, device="cpu", **kw)
+    b = trl.richardson_lucy_MM(*args, config=trl.RLConfig(dtype="bfloat16"), device="cpu", **kw)
+    j = jrl.richardson_lucy_MM(*args, config=jrl.RLConfig(dtype="bfloat16"), **kw)
+    assert b.u.dtype == torch.float32 and np.isfinite(b.u.numpy()).all()
+    assert ssim(b.u.numpy(), f32.u.numpy(), data_range=1.0) > 0.98
+    assert ssim(b.u.numpy(), np.asarray(j.u), data_range=1.0) > 0.98
+
+
+@pytest.mark.parametrize("blind", [False, True])
+def test_conv_precision_high_matches_jax_high(blind):
+    # mk 9 (81 taps): the port runs K4s; JAX on the CPU runs exact f32
+    mk, m = 9, 45
+    pad = mk // 2
+    rng = np.random.default_rng(61)
+    image = np.stack([sig.convolve(rng.uniform(0.2, 0.8, (m, m)), gaussian_kernel(5, 1.0),
+                                   mode="same", method="direct") for _ in range(3)], -1)
+    image = image.astype(np.float32)
+    u = np.pad(image, ((pad, pad), (pad, pad), (0, 0)), mode="edge").astype(np.float32)
+    psf = np.dstack([uniform_kernel(mk)] * 3).astype(np.float32)
+    win = (pad + 1, m - pad - 1, pad + 1, m - pad - 1)
+    kw = dict(tau=1e9, iterations=3, lambd=1000.0, blind=blind)
+    cfg = dict(conv_precision="high", dof_guard=True)
+    a = jrl.richardson_lucy_MM(image, u, psf, *win, config=jrl.RLConfig(**cfg), **kw)
+    b = trl.richardson_lucy_MM(image, u, psf, *win, config=trl.RLConfig(**cfg),
+                               device="cpu", **kw)
+    assert b.iterations == a.iterations
+    # measured on the CPU: u within 1.1e-6 non-blind and 6e-8 blind (exact
+    # f32 against JAX: 1.8e-7 and 6e-8), psf within 7.5e-9; the bounds
+    # leave about 5x and 13x
+    np.testing.assert_allclose(b.u.numpy(), np.asarray(a.u), atol=5e-6)
+    np.testing.assert_allclose(b.psf.numpy(), np.asarray(a.psf), atol=1e-7)
+
+
 @pytest.mark.parametrize(
-    "cfg",
+    "cfg,err,match",
     [
-        dict(use_tv=True),
-        dict(dtype="mixed"),
-        dict(dtype="bfloat16"),
-        dict(conv_precision="high"),
-        dict(dof_guard=True),
+        (dict(conv_precision="bogus"), ValueError, "conv_precision"),
+        (dict(use_tv=True, tv_norm="l1"), ValueError, "tv_norm"),
+        (dict(dtype="float16"), ValueError, "dtype"),
+        (dict(psf_grad="fft"), ValueError, "psf_grad"),
+        (dict(conv_method="direct"), NotImplementedError, "ROADMAP"),
     ],
 )
-def test_unported_solver_modes_raise(cfg):
+def test_bad_solver_options_raise(cfg, err, match):
     args, kw = _args(tau=0.0, iterations=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(err, match=match):
         trl.richardson_lucy_MM(*args, config=trl.RLConfig(**cfg), device="cpu", **kw)
