@@ -6,10 +6,14 @@
 Phases:
   1. probe: the card (nvidia-smi), torch.version.cuda, nvcc, kernel build;
   2. each hand-written kernel (K1 conv, K2 inner loop, K3 PSF gradient, K4s
-     split and K4 bf16 tensor-core convs, K5 TV stencil) against its plain
-     PyTorch twin on the card, at its path's shapes, with CUDA-event median
-     times of both, taken in turns; K2-K5 run twice and must be bitwise
-     equal;
+     split and K4 bf16 tensor-core convs, K5 TV stencil, K6 bilateral
+     filter) against its plain PyTorch twin on the card, at its path's
+     shapes, with CUDA-event median times of both and of the one PyTorch
+     call that computes the same function where there is one, taken in
+     turns; K2-K6 run twice and must be bitwise equal.  Each kernel's bound
+     (the least time the card could take: bytes over 3.35 TB/s or operations
+     over the peak rate of their type, whichever is larger) is computed
+     from the shapes;
   3. the crop-scale pipeline on CUDA against the same pipeline on the CPU
      (SSIM of the uint16 outputs), in exact, mixed, high, fast and use_tv
      under each tv_norm;
@@ -17,7 +21,14 @@ Phases:
   5. the 24 MP case (bench.py's kwargs) in exact f32, the main path, then
      in precision 'high', in 'mixed' and with use_tv: the launch counters
      are zeroed just before each run; K1-K3 must be > 0 after the exact
-     run, K4s after 'high', K4 after 'mixed' and K5 after use_tv.
+     run, K4s after 'high', K4 after 'mixed' and K5 after use_tv;
+  6. the command line (``ics_tpu_torch.cli.main``) on the card, TIFF in and
+     TIFF out: ``bilateral``, ``bilateral-lab``, ``usm`` and ``tv-denoise``
+     with their defaults on the 24 MP frame (K6 > 0 after each bilateral
+     run, K1 > 0 after usm, counters zeroed before each), ``deblur`` on the
+     1.9 MP frame (K1, K2 > 0; its TIFF bitwise equal to phase 4's array),
+     and ``bilateral`` / ``bilateral-lab`` at crop scale on CUDA against
+     the CPU, within one 16-bit code.
 
 Any failure exits non-zero before the last line, which is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
@@ -29,6 +40,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -62,14 +74,30 @@ def _median_ms(torch, fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def _time_pair(torch, kernel, plain, reps: int) -> tuple[float, float]:
-    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain;
-    each the mean of its two medians."""
+def _time_turns(torch, kernel, plain, lib, reps: int):
+    """(kernel ms, plain ms, library ms or None), timed in turns plain, lib,
+    kernel, kernel, lib, plain; each the mean of its two medians."""
     p1 = _median_ms(torch, plain, reps)
+    l1 = _median_ms(torch, lib, reps) if lib else None
     k1 = _median_ms(torch, kernel, reps)
     k2 = _median_ms(torch, kernel, reps)
+    l2 = _median_ms(torch, lib, reps) if lib else None
     p2 = _median_ms(torch, plain, reps)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2 if lib else None
+
+
+# NVIDIA H100 SXM data sheet: HBM3 rate, dense peaks without sparsity
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+
+
+def _bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def make_scene(h: int, w: int, blur: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
@@ -134,6 +162,16 @@ def _rel(torch, got, ref) -> tuple[float, float]:
     return err, err / max(float(torch.max(torch.abs(ref.float()))), 1e-30)
 
 
+LIB_TOL = 1e-3  # the library call against the twin: cuDNN picks its own algorithm
+
+
+def _lib_agrees(torch, label: str, got, ref) -> None:
+    """The library call that is timed beside a kernel computes its function."""
+    _, rel = _rel(torch, got, ref)
+    print(f"{label}: library call rel {rel:.3e} against the twin")
+    _require(rel <= LIB_TOL, f"{label}: the library call computes the same function")
+
+
 def _ulps(torch, got, ref) -> float:
     """Largest |got - ref| in bf16 ulps of each (positive) ref value."""
     ref = ref.float()
@@ -142,7 +180,8 @@ def _ulps(torch, got, ref) -> float:
 
 
 def phase_kernels(torch, dev, rng) -> dict:
-    from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma, cuda_correlate, cuda_solver, cuda_tv
+    from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
+                                   cuda_solver, cuda_tv)
 
     rows = {}
 
@@ -156,6 +195,19 @@ def phase_kernels(torch, dev, rng) -> dict:
         u = np.pad(img, ((0, 0), (pad, pad), (pad, pad)), mode="edge")
         psf = rng.uniform(0.5, 1.0, (3, mk, mk))
         return t(img), t(u), t(psf / psf.sum(axis=(1, 2), keepdims=True))
+
+    F = torch.nn.functional
+
+    def lib_conv(a, k):
+        """One grouped cuDNN convolution of the same function, valid mode
+        (TF32 is off: exact_f32 in main)."""
+        return lambda: F.conv2d(a[None], torch.flip(k, (1, 2))[:, None], groups=a.shape[0])
+
+    def conv_bound(shape, mk, itemsize, kind, products=1):
+        c, h, w = shape
+        ho, wo = h - mk + 1, w - mk + 1
+        nbytes = itemsize * (c * h * w + c * mk * mk + c * ho * wo)
+        return _bound(nbytes, products * 2 * mk * mk * c * ho * wo, kind)
 
     # K1 at the 24 MP non-blind shapes and the 0.707 blind window
     k1_err = 0.0
@@ -171,15 +223,20 @@ def phase_kernels(torch, dev, rng) -> dict:
         ref = cuda_conv.conv_planar_plain(a, k, mode)
         err, rel = _rel(torch, got, ref)
         k1_err = max(k1_err, err)
-        ms, plain = _time_pair(
+        first = label == "24MP 9x9 valid"
+        ms, plain, lib = _time_turns(
             torch, lambda: cuda_conv.conv_planar(a, k, mode),
-            lambda: cuda_conv.conv_planar_plain(a, k, mode), reps,
+            lambda: cuda_conv.conv_planar_plain(a, k, mode),
+            lib_conv(a, k) if first else None, reps,
         )
         print(f"K1 {label}: max_abs_err {err:.3e} rel {rel:.3e}; "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms"
+              + (f", library conv2d {lib:.4f} ms" if first else ""))
         _require(rel <= REL_TOL, f"K1 {label} within {REL_TOL:g} of its twin")
-        if label == "24MP 9x9 valid":
-            rows["K1"] = dict(ms=ms, plain_ms=plain)
+        if first:
+            _lib_agrees(torch, f"K1 {label}", lib_conv(a, k)()[0], ref)
+            rows["K1"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                              **conv_bound(shape, mk, 4, "f32"))
         del a, got, ref
     rows["K1"]["max_abs_err"] = k1_err
 
@@ -208,12 +265,21 @@ def phase_kernels(torch, dev, rng) -> dict:
             )
             if (m, blind, corr) == (256, True, False):
                 uk = u0.clone()
-                ms, plain = _time_pair(
+                ms, plain, _ = _time_turns(
                     torch, lambda: cuda_solver.inner_loop_planar(uk, img, psf, **kw),
-                    lambda: cuda_solver.inner_loop_plain(u0, img, psf, **kw), 20,
+                    lambda: cuda_solver.inner_loop_plain(u0, img, psf, **kw), None, 20,
                 )
                 print(f"K2 {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms per outer")
-                rows["K2"] = dict(ms=ms, plain_ms=plain)
+                # five blind inner steps: four convolutions each (residual,
+                # correlation, fresh residual, PSF-gradient dots) and about
+                # 10 operations per image pixel and 9 per window pixel;
+                # u, image and psf read once, u, psf and the error written
+                c, um, un = u0.shape
+                n_img, n_u = c * m * m, c * um * un
+                ops = 5 * (4 * 2 * mk * mk * n_img + 10 * n_img + 9 * n_u)
+                nbytes = 4 * (2 * n_u + 2 * n_img + 2 * c * mk * mk)
+                rows["K2"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                  **_bound(nbytes, ops, "f32"))
     rows["K2"]["max_abs_err"] = k2_err
 
     # K3 at the 24 MP 0.707 and 1.0 blind windows
@@ -226,17 +292,26 @@ def phase_kernels(torch, dev, rng) -> dict:
         ref = cuda_correlate.psf_gradient_plain(u, err_t)
         err, rel = _rel(torch, got, ref)
         k3_err = max(k3_err, err)
-        ms, plain = _time_pair(
+        # the library call: one grouped convolution with the error window as
+        # the weight (a cross-correlation), then the flip
+        lib_fn = lambda: torch.flip(
+            F.conv2d(u[None], err_t[:, None], groups=3)[0], (1, 2))
+        ms, plain, lib = _time_turns(
             torch, lambda: cuda_correlate.psf_gradient_planar(u, err_t),
-            lambda: cuda_correlate.psf_gradient_plain(u, err_t), 20,
+            lambda: cuda_correlate.psf_gradient_plain(u, err_t),
+            lib_fn if mk == 9 else None, 20,
         )
         tag = f"{m + mk - 1}^2 mk {mk}"
         print(f"K3 {tag}: max_abs_err {err:.3e} rel {rel:.3e}; "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms"
+              + (f", library conv2d {lib:.4f} ms" if mk == 9 else ""))
         _require(rel <= REL_TOL, f"K3 {tag} within {REL_TOL:g} of its twin")
         _require(torch.equal(got, again), f"K3 {tag} bitwise reproducible")
         if mk == 9:
-            rows["K3"] = dict(ms=ms, plain_ms=plain)
+            _lib_agrees(torch, f"K3 {tag}", lib_fn(), ref)
+            nbytes = 4 * (u.numel() + err_t.numel() + 3 * mk * mk)
+            rows["K3"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                              **_bound(nbytes, 2 * mk * mk * err_t.numel(), "f32"))
     rows["K3"]["max_abs_err"] = k3_err
 
     # K4s and K4 at the 24 MP non-blind shapes and the 369^2 7x7 window
@@ -256,8 +331,10 @@ def phase_kernels(torch, dev, rng) -> dict:
                 kern, plain = cuda_conv_mma.conv_bf16, cuda_conv_mma.conv_bf16_plain
             got, again, ref = kern(a, k, mode), kern(a, k, mode), plain(a, k, mode)
             err, rel = _rel(torch, got, ref)
-            ms, plain_ms = _time_pair(torch, lambda: kern(a, k, mode),
-                                      lambda: plain(a, k, mode), reps)
+            first = label == "24MP 9x9 valid"
+            ms, plain_ms, lib = _time_turns(torch, lambda: kern(a, k, mode),
+                                            lambda: plain(a, k, mode),
+                                            lib_conv(a, k) if first else None, reps)
             if name == "K4s":
                 bound = f"within {REL_TOL:g} of its twin"
                 ok = rel <= REL_TOL
@@ -268,12 +345,17 @@ def phase_kernels(torch, dev, rng) -> dict:
                 ok = ulps <= 1.0
                 detail = f"{ulps:.2f} bf16 ulp"
             print(f"{name} {label}: max_abs_err {err:.3e} {detail}; "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                  + (f", library conv2d {lib:.4f} ms" if first else ""))
             _require(ok, f"{name} {label} {bound}")
             _require(torch.equal(got, again), f"{name} {label} bitwise reproducible")
             worst = max(worst, err)
-            if label == "24MP 9x9 valid":
-                rows[name] = dict(ms=ms, plain_ms=plain_ms)
+            if first:
+                # K4s: three bf16 products of the f32 operands' halves
+                # (the function is the f32 conv); K4: one, on bf16 operands
+                itemsize, products = (4, 3) if name == "K4s" else (2, 1)
+                rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                                  **conv_bound(shape, mk, itemsize, "bf16", products))
             del a, got, again, ref
         rows[name]["max_abs_err"] = worst
 
@@ -289,8 +371,9 @@ def phase_kernels(torch, dev, rng) -> dict:
         ref = cuda_tv.tv_planar_plain(x, 1e-6, order, norm)
         errs = [_rel(torch, g, r) for g, r in zip(got, ref)]
         err, rel = max(e for e, _ in errs), max(r for _, r in errs)
-        ms, plain_ms = _time_pair(torch, lambda: cuda_tv.tv_planar(x, 1e-6, order, norm),
-                                  lambda: cuda_tv.tv_planar_plain(x, 1e-6, order, norm), 5)
+        ms, plain_ms, _ = _time_turns(torch, lambda: cuda_tv.tv_planar(x, 1e-6, order, norm),
+                                      lambda: cuda_tv.tv_planar_plain(x, 1e-6, order, norm),
+                                      None, 5)
         tag = f"24MP order {order} L{norm} {str(dtype).split('.')[-1]}"
         bitwise = all(torch.equal(g, r) for g, r in zip(got, ref))
         print(f"K5 {tag}: max_abs_err {err:.3e} rel {rel:.3e} (bitwise equal to twin: "
@@ -300,9 +383,48 @@ def phase_kernels(torch, dev, rng) -> dict:
                  f"K5 {tag} bitwise reproducible")
         worst = max(worst, err)
         if (order, norm, dtype) == (2, 2, torch.float32):
-            rows["K5"] = dict(ms=ms, plain_ms=plain_ms)
+            # order 2, L2: about 31 operations per interior pixel; one read,
+            # two writes
+            rows["K5"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                              **_bound(4 * 3 * x.numel(), 31 * x.numel(), "f32"))
         del x, got, again, ref
     rows["K5"]["max_abs_err"] = worst
+    del u
+
+    # K6 at one 24 MP plane (the CLI's bilateral filters each channel), a
+    # 3-plane crop, a 24 MP L plane on the 0-100 scale (bilateral-lab) and a
+    # plane smaller than 2r+1 on a side; std_s 5.0, the CLI default
+    worst = 0.0
+    for label, shape, radius, std_i, scale, reps in [
+        ("24MP plane r5", (1, 4000, 6000), 5, 0.1, 1.0, 3),
+        ("3x257x263 r2", (3, 257, 263), 2, 0.1, 1.0, 0),
+        ("24MP L plane r5 std_i 5", (1, 4000, 6000), 5, 5.0, 100.0, 0),
+        ("7x4 plane r5", (1, 7, 4), 5, 0.1, 1.0, 0),
+    ]:
+        x = torch.rand(shape, dtype=torch.float32, device=dev) * scale
+        args = (radius, std_i, 5.0)
+        got = cuda_bilateral.bilateral_planar(x, *args)
+        again = cuda_bilateral.bilateral_planar(x, *args)
+        ref = cuda_bilateral.bilateral_planar_plain(x, *args)
+        err, rel = _rel(torch, got, ref)
+        line = f"K6 {label}: max_abs_err {err:.3e} rel {rel:.3e}"
+        if reps:
+            ms, plain_ms, _ = _time_turns(
+                torch, lambda: cuda_bilateral.bilateral_planar(x, *args),
+                lambda: cuda_bilateral.bilateral_planar_plain(x, *args), None, reps,
+            )
+            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            # per pixel and offset: difference, square, scale, exp, two
+            # products, multiply-add (2) and add; one division per pixel
+            offsets = (2 * radius + 1) ** 2
+            rows["K6"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                              **_bound(8 * x.numel(), (9 * offsets + 1) * x.numel(), "f32"))
+        print(line)
+        _require(rel <= REL_TOL, f"K6 {label} within {REL_TOL:g} of its twin")
+        _require(torch.equal(got, again), f"K6 {label} bitwise reproducible")
+        worst = max(worst, err)
+        del x, got, again, ref
+    rows["K6"]["max_abs_err"] = worst
     return rows
 
 
@@ -338,19 +460,22 @@ def _report(label, wall, compute, levels):
 
 def _counters():
     """{kernel: launches so far} over every wrapper's counter."""
-    from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma, cuda_correlate, cuda_solver, cuda_tv
+    from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
+                                   cuda_solver, cuda_tv)
 
     return {
         "K1": cuda_conv.launches, "K2": cuda_solver.launches,
         "K3": cuda_correlate.launches, "K4s": cuda_conv_mma.split_launches,
         "K4": cuda_conv_mma.bf16_launches, "K5": cuda_tv.launches,
+        "K6": cuda_bilateral.launches,
     }
 
 
 def _zero_counters() -> None:
-    from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma, cuda_correlate, cuda_solver, cuda_tv
+    from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
+                                   cuda_solver, cuda_tv)
 
-    for mod in (cuda_conv, cuda_solver, cuda_correlate, cuda_tv):
+    for mod in (cuda_conv, cuda_solver, cuda_correlate, cuda_tv, cuda_bilateral):
         mod.launches = 0
     cuda_conv_mma.split_launches = cuda_conv_mma.bf16_launches = 0
 
@@ -412,6 +537,70 @@ def phase_pipelines(torch, dev) -> dict:
         _require(all(counts[n] > 0 for n in names),
                  f"{', '.join(names)} launched on the 24 MP {label} path")
         launches.update({n: counts[n] for n in names})
+    return launches, pic19, out19, pic24
+
+
+# ---------------------------------------------------------------- phase 6
+def _cli(argv, device="cuda") -> tuple[float, dict]:
+    """Run the port's command line; (wall seconds, launches in the run)."""
+    from ics_tpu_torch.cli import main as cli_main
+
+    _zero_counters()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv, device=device)
+    wall = time.perf_counter() - t0
+    _require(rc == 0, f"{' '.join(argv[:1])} on {device} exits 0")
+    return wall, _counters()
+
+
+def phase_cli(pic19, out19, pic24) -> dict:
+    import tempfile
+
+    from ics_tpu_torch.utils.io import imread, imsave
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "out")
+        # the 24 MP scene as a 16-bit RGB TIFF, each filter with its defaults
+        frame = os.path.join(tmp, "frame24.tif")
+        imsave(frame, pic24.astype(np.uint16) * 257)
+        for cmd, names in [("bilateral", ("K6",)), ("bilateral-lab", ("K6",)),
+                           ("usm", ("K1",)), ("tv-denoise", ())]:
+            wall, counts = _cli([cmd, frame, out_dir])
+            out = imread(os.path.join(out_dir, f"frame24-{cmd}.tif"))
+            print(f"CLI {cmd} 24MP 4000x6000, TIFF in and out: wall {wall:.3f} s, "
+                  f"launches {json.dumps(counts)}")
+            _require(out.dtype == np.uint16 and out.shape == pic24.shape,
+                     f"CLI {cmd} writes a uint16 TIFF of the input's shape")
+            _require(all(counts[n] > 0 for n in names),
+                     f"{', '.join(names) or 'no kernel'} launched by the 24 MP CLI {cmd}")
+            if cmd == "bilateral":
+                launches["K6"] = counts["K6"]
+
+        # deblur on the 1.9 MP scene, as an 8-bit TIFF, with phase 4's flags
+        src = os.path.join(tmp, "scene19.tif")
+        imsave(src, pic19)
+        wall, counts = _cli(["deblur", src, out_dir, "--blur-width", "7", "--mask", "584",
+                             "795", "--tolerance", "0.1"])
+        got = imread(os.path.join(out_dir, "scene19-deblurred.tif"))
+        print(f"CLI deblur 1.9MP 1367x1394: wall {wall:.3f} s, launches {json.dumps(counts)}")
+        _require(counts["K1"] > 0 and counts["K2"] > 0, "K1, K2 launched by the CLI deblur")
+        _require(got.dtype == np.uint16 and np.array_equal(got, out19),
+                 "CLI deblur TIFF bitwise equal to phase 4's array")
+
+        # crop scale: the CLI on CUDA against the CLI on the CPU
+        crop = os.path.join(tmp, "crop.tif")
+        imsave(crop, make_scene(257, 263, 5, seed=3)[1])
+        for cmd in ("bilateral", "bilateral-lab"):
+            outs = {}
+            for device in ("cuda", "cpu"):
+                _cli([cmd, crop, os.path.join(tmp, device)], device=device)
+                outs[device] = imread(os.path.join(tmp, device, f"crop-{cmd}.tif"))
+            diff = int(np.abs(outs["cuda"].astype(np.int32) - outs["cpu"]).max())
+            print(f"CLI {cmd} crop 257x263 cuda vs cpu: max difference {diff} codes")
+            _require(diff <= 1, f"CLI {cmd} on CUDA within one 16-bit code of the CPU")
     return launches
 
 
@@ -443,7 +632,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
     rows = phase_kernels(torch, dev, rng)
-    launches = phase_pipelines(torch, dev)
+    launches, pic19, out19, pic24 = phase_pipelines(torch, dev)
+    launches.update(phase_cli(pic19, out19, pic24))
 
     sources = {
         "K1": ("ics_tpu_torch/csrc/conv2d.cu", "ics_tpu/ops/pallas_conv.py:39"),
@@ -452,12 +642,15 @@ def main() -> int:
         "K4s": ("ics_tpu_torch/csrc/conv_mma.cu", "ics_tpu/ops/pallas_conv_mxu.py:118"),
         "K4": ("ics_tpu_torch/csrc/conv_mma.cu", "ics_tpu/ops/pallas_conv_mxu.py:170"),
         "K5": ("ics_tpu_torch/csrc/tv.cu", "ics_tpu/ops/pallas_tv.py:62"),
+        "K6": ("ics_tpu_torch/csrc/bilateral.cu", "ics_tpu/ops/pallas_bilateral.py:58"),
     }
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
          "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
-         "plain_ms": rows[name]["plain_ms"]}
+         "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
+         "bound_by": rows[name]["bound_by"], "library_ms": rows[name]["library_ms"],
+         "lib_ms": rows[name]["library_ms"]}
         for name, (src, rep) in sources.items()
     ]}
     print(f"card: {smi}")

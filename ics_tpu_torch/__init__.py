@@ -3,23 +3,35 @@
 The JAX package ``ics_tpu`` stays the reference; this package mirrors its
 layout (``ops/``, ``models/``, ``utils/``) and names, imports ``torch`` and
 never ``jax`` or ``ics_tpu``.  It runs ``deblur_module`` with the ``mm``
-solver in every precision mode and with the ``use_tv`` regularizer, carried
-on the GPU by hand-written CUDA kernels (``csrc/``): the per-channel
-convolution (K1), the one-launch RL-MM inner loop (K2), the blind PSF
-gradient (K3), the bf16 tensor-core convolutions, split-f32 (K4s) and bf16
-(K4), and the TV stencil (K5).  Each kernel has a plain PyTorch twin that
-runs on CPU tensors.
+solver in every precision mode and with the ``use_tv`` regularizer, the
+classic filters (``utils/filters.py``), TV denoising, the LAB conversions,
+TIFF I/O and the command line (``python -m ics_tpu_torch``), carried on the
+GPU by hand-written CUDA kernels (``csrc/``): the per-channel convolution
+(K1), the one-launch RL-MM inner loop (K2), the blind PSF gradient (K3), the
+bf16 tensor-core convolutions, split-f32 (K4s) and bf16 (K4), the TV stencil
+(K5) and the bilateral filter (K6).  Each kernel has a plain PyTorch twin
+that runs on CPU tensors.
 
 Public surface of this slice:
   - ``deblur_module``      (reference: deconvolve.py:66)
   - ``richardson_lucy_MM`` (reference: lib/deconvolution.pyx:341)
   - ``normalize_kernel``   (reference: lib/deconvolution.pyx:73)
+  - ``tv_denoise`` and the ``utils`` modules ``filters``, ``color`` and
+    ``io`` (reference: lib/utils.py)
 """
 
-from ics_tpu_torch.ops.windows import uniform_kernel, gaussian_kernel
+from ics_tpu_torch.ops.windows import (
+    uniform_kernel,
+    gaussian_kernel,
+    kaiser_kernel,
+    poisson_kernel,
+    disc_blur,
+    lens_blur,
+)
 from ics_tpu_torch.ops.psf import normalize_kernel, rotate_180
 from ics_tpu_torch.ops.conv import convolve2d, convolve_rgb
 from ics_tpu_torch.models.rl_mm import richardson_lucy_MM, RLConfig, RLResult
+from ics_tpu_torch.models.tv_denoise import tv_denoise
 from ics_tpu_torch.models.pipeline import deblur_module, build_pyramid, pad_image
 
 __version__ = "0.1.0"
@@ -27,6 +39,10 @@ __version__ = "0.1.0"
 __all__ = [
     "uniform_kernel",
     "gaussian_kernel",
+    "kaiser_kernel",
+    "poisson_kernel",
+    "disc_blur",
+    "lens_blur",
     "normalize_kernel",
     "rotate_180",
     "convolve2d",
@@ -34,6 +50,7 @@ __all__ = [
     "richardson_lucy_MM",
     "RLConfig",
     "RLResult",
+    "tv_denoise",
     "deblur_module",
     "build_pyramid",
     "pad_image",

@@ -54,6 +54,8 @@ _SIGNATURES = {
     "ics_conv_mma_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # u, tv, div, C, H, W, order, norm, eps, eps2, sqrt2, adjust, is_bf16, stream
     "ics_tv": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    # src, out, C, H, W, radius, inv2si2, norm_i, inv2ss2, norm_s, stream
+    "ics_bilateral": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -11,9 +11,10 @@ breaks the parity class of the epsilon-free DoF division.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["exact_f32", "resolve_device", "synchronize"]
+__all__ = ["exact_f32", "resolve_device", "synchronize", "to_f32"]
 
 
 def exact_f32() -> None:
@@ -40,3 +41,10 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device queue (no-op on the CPU, which runs eagerly)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def to_f32(x, device: torch.device) -> torch.Tensor:
+    """A NumPy array or tensor as a float32 tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)

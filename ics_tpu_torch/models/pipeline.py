@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -27,6 +28,8 @@ from ics_tpu_torch.models.checkpoint import (
 from ics_tpu_torch.models.rl_mm import RLConfig, richardson_lucy_MM
 from ics_tpu_torch.ops.psf import normalize_kernel
 from ics_tpu_torch.ops.windows import uniform_kernel
+from ics_tpu_torch.utils.io import save
+from ics_tpu_torch.utils.resize import resize as resize_scipy
 from ics_tpu_torch.utils.resize import resize_jax
 from ics_tpu_torch.utils.timing import timeit
 from ics_tpu_torch.utils.trace import Tracer
@@ -164,9 +167,12 @@ def deblur_module(
     ('exact', 'high', 'mixed', 'fast', 'hybrid', 'hybrid-high'), with
     ``use_tv`` / ``tv_norm``, ``preview``, ``blind_budget``,
     ``nonblind_levels``, ``early_stop``, ``psf_path`` / ``save_psf_path``,
-    ``stats_out``, ``compute_timer`` and ``trace``.  ``dest_path`` must be None (the TIFF
-    writer is not ported yet); the other unported options raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    ``stats_out``, ``compute_timer``, ``trace``, ``resize_backend`` ('jax',
+    the on-device cubic, or 'scipy', the host spline) and ``dest_path``
+    (a 16-bit TIFF ``<filename>.tif``, ``-preview`` appended with
+    ``preview``).  The unported options (``display``, ``mesh``, the
+    ``pam``/``pd`` solvers) raise ``NotImplementedError`` naming their
+    ROADMAP item.
 
     ``device``: 'cuda' (the default; raises without a GPU) or 'cpu'.
     ``compute_timer`` times upload-complete to result-ready on the device,
@@ -180,16 +186,17 @@ def deblur_module(
     def _stage(name):
         return tracer.stage(name) if tracer is not None else contextlib.nullcontext()
 
-    if dest_path is not None:
-        raise _not_ported("dest_path (the TIFF writer)", "Host-side I/O, display and the CLI")
     if display:
-        raise _not_ported("display=True", "Host-side I/O, display and the CLI")
-    if resize_backend != "jax":
-        raise _not_ported(
-            f"resize_backend={resize_backend!r}", "Host-side I/O, display and the CLI"
-        )
+        raise _not_ported("display=True (matplotlib)", "Host-side I/O, display and the CLI")
     if mesh is not None:
         raise _not_ported("mesh sharding", "Batching and multiple GPUs")
+
+    if resize_backend == "jax":
+        resize = resize_jax
+    else:  # the host spline, as ics_tpu/models/pipeline.py:247-252 does
+        resize = lambda a, s: torch.from_numpy(
+            resize_scipy(a.cpu().numpy(), s).astype(np.float32)
+        ).to(dev)
 
     with _stage("upload + preprocess"):
         samples = 2**bits - 1
@@ -356,10 +363,10 @@ def deblur_module(
                 shape = (temp_height, temp_width, 3)
 
                 with _stage("resize + pad"):
-                    temp_blurry_image = resize_jax(pic, shape)
-                    deblured_image = resize_jax(deblured_image, shape)
+                    temp_blurry_image = resize(pic, shape)
+                    deblured_image = resize(deblured_image, shape)
                     if case == "blind":
-                        psf_copy = normalize_kernel(resize_jax(psf, (k, k)))
+                        psf_copy = normalize_kernel(resize(psf, (k, k)))
                     else:
                         psf_copy = psf
                         k = kernels[0]
@@ -476,6 +483,7 @@ def deblur_module(
         )
 
     if preview:
+        filename = filename + "-preview"
         deblured_image = deblured_image[top:bottom, left:right, ...]
     else:
         if odd_hor:
@@ -483,6 +491,11 @@ def deblur_module(
         if odd_vert:
             deblured_image = deblured_image[1:, :, ...]
         deblured_image = deblured_image[1:-1, 1:-1, ...]
+
+    if dest_path is not None:
+        with _stage("tiff save"):
+            os.makedirs(dest_path, exist_ok=True)
+            save(deblured_image, filename, dest_path)
 
     if tracer is not None and verbose and not isinstance(trace, Tracer):
         print("---- deblur_module stage profile (stages serialized) ----")

@@ -28,7 +28,9 @@ import functools
 
 import torch
 
-__all__ = ["convolve2d", "convolve_rgb", "conv_planar", "fft_autocorrelate_same"]
+__all__ = [
+    "convolve2d", "convolve_rgb", "conv_planar", "fft_autocorrelate_same", "pad_symmetric",
+]
 
 
 def _out_shape(m: int, mk: int, mode: str) -> int:
@@ -57,6 +59,22 @@ def _pads(mk: int, mode: str) -> tuple[int, int]:
         off = (mk - 1) // 2
         return (mk - 1 - off, off)
     raise ValueError(f"unknown mode {mode!r}")
+
+
+def _symmetric_index(n: int, lo: int, hi: int) -> torch.Tensor:
+    """Source indices of ``np.pad(x, (lo, hi), 'symmetric')`` along a side of
+    ``n``: the edge repeats, with period 2n, so any width is right."""
+    m = torch.remainder(torch.arange(-lo, n + hi), 2 * n)
+    return torch.where(m < n, m, 2 * n - 1 - m)
+
+
+def pad_symmetric(x: torch.Tensor, rows, cols) -> torch.Tensor:
+    """``np.pad(..., 'symmetric')`` of the last two axes by ``rows`` and
+    ``cols`` (each (lo, hi)); ``F.pad``'s 'reflect' leaves the edge out."""
+    h, w = x.shape[-2], x.shape[-1]
+    ri = _symmetric_index(h, *rows).to(x.device)
+    ci = _symmetric_index(w, *cols).to(x.device)
+    return x.index_select(-2, ri).index_select(-1, ci)
 
 
 @functools.lru_cache(maxsize=None)

@@ -11,6 +11,10 @@ with the same float32 sample positions, on the image's device (a 24 MP level's
 matrix holds 25 M entries), cached per shape, and applied as float32 matmuls
 with TF32 off.  ``F.interpolate(mode="bicubic")`` uses another coefficient,
 edge rule and no antialiasing: it is not this function.
+
+``resize`` is the host-side SciPy resize of ``resize_backend="scipy"``,
+copied from ics_tpu/utils/resize.py:26-48 (the port never imports
+``ics_tpu``, whose package import loads JAX).
 """
 
 from __future__ import annotations
@@ -19,10 +23,38 @@ import functools
 
 import numpy as np
 import torch
+from scipy import ndimage
 
 from ics_tpu_torch._device import exact_f32
 
-__all__ = ["resize_jax", "weight_matrix"]
+__all__ = ["resize", "resize_jax", "weight_matrix"]
+
+
+def resize(image: np.ndarray, shape, order: int = 3, mode: str = "edge") -> np.ndarray:
+    """Resize (H, W) or (H, W, C) to ``shape`` (spatial dims of shape only)
+    with skimage.transform.resize's sampling: centered coordinates, an
+    order-3 B-spline (scipy.ndimage.map_coordinates), edge replication."""
+    image = np.asarray(image)
+    out_h, out_w = int(shape[0]), int(shape[1])
+    in_h, in_w = image.shape[:2]
+    # skimage/scipy 'edge' replication is ndimage mode 'nearest'
+    nd_mode = {"edge": "nearest", "reflect": "reflect", "wrap": "wrap"}[mode]
+
+    row = (np.arange(out_h) + 0.5) * (in_h / out_h) - 0.5
+    col = (np.arange(out_w) + 0.5) * (in_w / out_w) - 0.5
+    rr, cc = np.meshgrid(row, col, indexing="ij")
+    coords = np.stack([rr, cc])
+
+    def _one(plane):
+        return ndimage.map_coordinates(
+            plane.astype(np.float64), coords, order=order, mode=nd_mode
+        )
+
+    if image.ndim == 2:
+        out = _one(image)
+    else:
+        out = np.stack([_one(image[..., c]) for c in range(image.shape[-1])], axis=-1)
+    return out.astype(image.dtype if image.dtype.kind == "f" else np.float32)
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,8 @@ card and no JAX; tests/conftest.py imports JAX, so skip it there:
 import pytest
 import torch
 
-from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma, cuda_correlate, cuda_solver, cuda_tv
+from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
+                               cuda_solver, cuda_tv)
 
 
 def _need_gpu():
@@ -111,3 +112,31 @@ def test_k5_kernel_matches_twin_on_gpu(order, norm, dtype):
         assert g.dtype == dtype
         # the same IEEE operations in the same order: bitwise
         assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 77, 101), (3, 33, 40), (2, 5, 3)])
+@pytest.mark.parametrize("std_i,scale", [(0.1, 1.0), (5.0, 100.0)])
+@pytest.mark.parametrize("radius", [1, 2, 5, 16])
+def test_k6_kernel_matches_twin_on_gpu(radius, std_i, scale, shape):
+    """Tiles of 32x32 do not divide 77x101 or 33x40; a 5x3 plane is smaller
+    than 2r+1 for every radius above 1 (reflection with period 2n)."""
+    dev = _need_gpu()
+    src = torch.rand(shape, device=dev) * scale
+    before = cuda_bilateral.launches
+    got = cuda_bilateral.bilateral_planar(src, radius, std_i, 5.0)
+    assert cuda_bilateral.launches == before + 1
+    ref = cuda_bilateral.bilateral_planar_plain(src, radius, std_i, 5.0)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(got, cuda_bilateral.bilateral_planar(src, radius, std_i, 5.0))
+
+
+@pytest.mark.cuda
+def test_k6_radius_limit_raises_on_gpu():
+    dev = _need_gpu()
+    src = torch.rand((1, 40, 40), device=dev)
+    cuda_bilateral.bilateral_planar(src, cuda_bilateral.MAX_RADIUS, 0.1, 5.0)
+    before = cuda_bilateral.launches
+    with pytest.raises(ValueError, match=str(cuda_bilateral.MAX_RADIUS)):
+        cuda_bilateral.bilateral_planar(src, cuda_bilateral.MAX_RADIUS + 1, 0.1, 5.0)
+    assert cuda_bilateral.launches == before

@@ -134,9 +134,7 @@ def test_same_value_errors_as_jax(kw, match):
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(dest_path="out"),
         dict(display=True),
-        dict(resize_backend="scipy"),
         dict(mesh=object()),
         dict(solver="pam"),
         dict(solver="pd"),
@@ -148,6 +146,44 @@ def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         _quiet(ics_tpu_torch.deblur_module, FIXTURE, "x", blur_width=3,
                mask_size=31, iterations=1, verbose=False, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("preview", [False, True])
+def test_dest_path_saves_the_returned_array_as_jax_names_it(tmp_path, preview):
+    from ics_tpu.utils.io import imread
+
+    kw = dict(mask_size=31, iterations=3, verbose=False, preview=preview)
+    got = _quiet(ics_tpu_torch.deblur_module, FIXTURE, "shot", str(tmp_path / "t"), 3,
+                 device="cpu", **kw)
+    _quiet(ics_tpu.deblur_module, FIXTURE, "shot", str(tmp_path / "j"), 3, **kw)
+    name = "shot-preview.tif" if preview else "shot.tif"
+    assert sorted(p.name for p in (tmp_path / "t").iterdir()) == [name]
+    assert sorted(p.name for p in (tmp_path / "j").iterdir()) == [name]
+    saved = imread(str(tmp_path / "t" / name))
+    assert saved.dtype == np.uint16
+    np.testing.assert_array_equal(saved, got)
+    assert ssim(saved / 65535.0, imread(str(tmp_path / "j" / name)) / 65535.0) >= 0.999
+
+
+@pytest.mark.parametrize("name", ["blocky", "two-level"])
+def test_scipy_resize_backend_matches_jax(name):
+    pic, blur_width, kw = CASES[name]
+    kw = dict(kw, verbose=False, resize_backend="scipy")
+    want = _quiet(ics_tpu.deblur_module, pic, "x", None, blur_width, **kw)
+    got = _quiet(ics_tpu_torch.deblur_module, pic, "x", None, blur_width, device="cpu", **kw)
+    assert got.dtype == np.uint16 and got.shape == want.shape
+    assert ssim(got / 65535.0, want / 65535.0) >= 0.999
+
+
+def test_scipy_resize_equals_jax_package_resize():
+    from ics_tpu.utils.resize import resize as jresize
+
+    from ics_tpu_torch.utils.resize import resize
+
+    img = RNG.random((23, 31, 3)).astype(np.float32)
+    for shape in [(16, 22), (33, 45), (23, 31)]:
+        np.testing.assert_array_equal(resize(img, shape), jresize(img, shape))
+    np.testing.assert_array_equal(resize(img[..., 0], (9, 9)), jresize(img[..., 0], (9, 9)))
 
 
 NINE = _blocky(16, 8, 9)
