@@ -10,7 +10,8 @@ Phases:
      filter) against its plain PyTorch twin on the card, at its path's
      shapes, with CUDA-event median times of both and of the one PyTorch
      call that computes the same function where there is one, taken in
-     turns; K2-K6 run twice and must be bitwise equal.  Each kernel's bound
+     turns; every kernel runs twice and must be bitwise equal; K2 also
+     runs at the op loop's 24 MP windows beside the op loop (informational).  Each kernel's bound
      (the least time the card could take: bytes over 3.35 TB/s or operations
      over the peak rate of their type, whichever is larger) is computed
      from the shapes;
@@ -21,7 +22,9 @@ Phases:
   5. the 24 MP case (bench.py's kwargs) in exact f32, the main path, then
      in precision 'high', in 'mixed' and with use_tv: the launch counters
      are zeroed just before each run; K1-K3 must be > 0 after the exact
-     run, K4s after 'high', K4 after 'mixed' and K5 after use_tv;
+     run, K4s after 'high', K4 after 'mixed' and K5 after use_tv; then one
+     more exact run under torch.profiler: each kernel's summed device time
+     and launches, K1 split into full frames and blind windows;
   6. the command line (``ics_tpu_torch.cli.main``) on the card, TIFF in and
      TIFF out: ``bilateral``, ``bilateral-lab``, ``usm`` and ``tv-denoise``
      with their defaults on the 24 MP frame (K6 > 0 after each bilateral
@@ -220,6 +223,7 @@ def phase_kernels(torch, dev, rng) -> dict:
         a = torch.rand(shape, dtype=torch.float32, device=dev) * 0.75 + 0.15
         k = t(rng.uniform(0.0, 1.0, (3, mk, mk)))
         got = cuda_conv.conv_planar(a, k, mode)
+        again = cuda_conv.conv_planar(a, k, mode)
         ref = cuda_conv.conv_planar_plain(a, k, mode)
         err, rel = _rel(torch, got, ref)
         k1_err = max(k1_err, err)
@@ -233,11 +237,12 @@ def phase_kernels(torch, dev, rng) -> dict:
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms"
               + (f", library conv2d {lib:.4f} ms" if first else ""))
         _require(rel <= REL_TOL, f"K1 {label} within {REL_TOL:g} of its twin")
+        _require(torch.equal(got, again), f"K1 {label} bitwise reproducible")
         if first:
             _lib_agrees(torch, f"K1 {label}", lib_conv(a, k)()[0], ref)
             rows["K1"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                               **conv_bound(shape, mk, 4, "f32"))
-        del a, got, ref
+        del a, got, again, ref
     rows["K1"]["max_abs_err"] = k1_err
 
     # K2 at the 1.9 MP finest blind window (262^2, mk 7) and the 24 MP
@@ -281,6 +286,29 @@ def phase_kernels(torch, dev, rng) -> dict:
                 rows["K2"] = dict(ms=ms, plain_ms=plain, library_ms=None,
                                   **_bound(nbytes, ops, "f32"))
     rows["K2"]["max_abs_err"] = k2_err
+
+    # K2 called directly at the 24 MP op-loop windows (369^2 mk 7, 520^2 mk
+    # 9), beside the op loop's time per outer there (K1 and K3 with torch
+    # elementwise passes): informational, the solver keeps the JAX bound
+    from functools import partial
+
+    from ics_tpu_torch.ops.conv import conv_planar
+
+    for m, mk in [(363, 7), (512, 9)]:
+        img, u0, psf = window(m, mk)
+        kw = dict(step_factor=1e-3, lambd=1e4, blind=True, correlation=False)
+        u1, p1, _ = cuda_solver.inner_loop_planar(u0.clone(), img, psf, **kw)
+        ur, pr, _ = cuda_solver.inner_loop_plain(u0.clone(), img, psf, **kw)
+        uk = u0.clone()
+        ops_kw = dict(conv=partial(conv_planar, precision="exact"),
+                      psf_grad=cuda_correlate.psf_gradient_planar, **kw)
+        ms, ops_ms, _ = _time_turns(
+            torch, lambda: cuda_solver.inner_loop_planar(uk, img, psf, **kw),
+            lambda: cuda_solver.inner_loop_ops(u0, img, psf, **ops_kw), None, 10,
+        )
+        print(f"K2 direct {m + mk - 1}^2 mk {mk} blind (informational, outside the JAX "
+              f"window bound): kernel {ms:.4f} ms per outer, op loop {ops_ms:.4f} ms per "
+              f"outer; u rel {_rel(torch, u1, ur)[1]:.3e}, psf rel {_rel(torch, p1, pr)[1]:.3e}")
 
     # K3 at the 24 MP 0.707 and 1.0 blind windows
     k3_err = 0.0
@@ -537,7 +565,66 @@ def phase_pipelines(torch, dev) -> dict:
         _require(all(counts[n] > 0 for n in names),
                  f"{', '.join(names)} launched on the 24 MP {label} path")
         launches.update({n: counts[n] for n in names})
+    profile_exact(torch, pic24, kw24)
     return launches, pic19, out19, pic24
+
+
+_KERNEL_NAMES = [("conv2d_kernel", "K1"), ("inner_loop_kernel", "K2"), ("psf_grad", "K3"),
+                 ("conv_mma_kernel<true", "K4s"), ("conv_mma_kernel<false", "K4"),
+                 ("tv_kernel", "K5"), ("bilateral_kernel", "K6")]
+
+
+def profile_exact(torch, pic24, kw24) -> None:
+    """One more 24 MP exact run under torch.profiler: each kernel's summed
+    device time and launches, K1 split by shape class (a full frame, or a
+    blind window of at most 600x600: the op loop's 369^2 and 520^2 levels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ics_tpu_torch.ops import cuda_conv
+
+    classes = []  # one entry per K1 launch, in launch order
+    original = cuda_conv.conv_planar
+
+    def classified(a, k, mode):
+        if a.device.type == "cuda":
+            classes.append("window" if a.shape[1] * a.shape[2] <= 600 * 600 else "frame")
+        return original(a, k, mode)
+
+    cuda_conv.conv_planar = classified
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _deblur(torch, pic24, "cuda", **kw24, precision="exact")
+            wall = time.perf_counter() - t0
+    finally:
+        cuda_conv.conv_planar = original
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    sums, other = {}, {}
+    k1_seen = 0
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        kid = next((k for frag, k in _KERNEL_NAMES if frag in e.name), None)
+        if kid == "K1":
+            kid = f"K1 {classes[k1_seen] if k1_seen < len(classes) else 'unmatched'}"
+            k1_seen += 1
+        if kid is None:
+            n, t = other.get(e.name, (0, 0.0))
+            other[e.name] = (n + 1, t + us)
+            continue
+        n, t = sums.get(kid, (0, 0.0))
+        sums[kid] = (n + 1, t + us)
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    _require(k1_seen == len(classes), "profiler: one K1 kernel per K1 launch")
+    print(f"profile 24MP exact: wall {wall:.3f} s (profiled), device busy {busy:.3f} s, "
+          f"busy share {busy / wall:.3f}")
+    report = {k: {"launches": n, "device_s": t / 1e6} for k, (n, t) in sorted(sums.items())}
+    print("profile 24MP exact kernels: " + json.dumps(report))
+    top = sorted(other.items(), key=lambda kv: -kv[1][1])[:8]
+    for name, (n, t) in top:
+        print(f"  other: {t / 1e6:.4f} s, {n} launches, {name[:100]}")
+    print(f"  other total: {sum(t for _, t in other.values()) / 1e6:.4f} s")
 
 
 # ---------------------------------------------------------------- phase 6

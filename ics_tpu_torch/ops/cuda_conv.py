@@ -3,7 +3,9 @@
 Counterpart of ics_tpu/ops/pallas_conv.py.  Planar (C, H, W) float32 input,
 (C, MK, NK) taps, scipy ``valid``/``same``/``full`` output.  On a CPU tensor
 the wrapper runs the plain PyTorch twin; on a CUDA tensor it launches the
-kernel or raises.
+kernel or raises.  The kernel is register-blocked over a persistent grid
+(unrolled for 3x3, 5x5, 7x7 and 9x9 taps, a run-time-size instance up to
+31x31) and gives the same bits as a plain fmaf chain per output.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from ics_tpu_torch.ops.conv import _out_shape, _pads
 
 __all__ = ["conv_planar", "conv_planar_plain", "MAX_TAPS_SIDE"]
 
-MAX_TAPS_SIDE = 31  # csrc/conv2d.cu kMaxK: taps live in shared memory
+MAX_TAPS_SIDE = 31  # csrc/conv2d.cu kMaxK: the run-time-size instance's bound
 launches = 0  # kernel launches by conv_planar (the twin never counts)
 
 

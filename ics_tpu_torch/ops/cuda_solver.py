@@ -6,7 +6,9 @@ bfloat16, use_tv).
 Counterpart of ics_tpu/ops/pallas_solver.py (``inner_loop_pallas``) and of
 the ``lax.scan`` inner loop of ics_tpu/models/rl_mm.py.  All arrays are
 planar (C, H, W); K2 takes float32 only.  On CPU tensors ``inner_loop_planar``
-runs the plain twin; on CUDA tensors it launches the kernel or raises.
+runs the plain twin; on CUDA tensors it launches the kernel or raises.  The
+kernel runs one 512-thread block per SM over 2-D tiles of the window and
+crosses four grid barriers per blind inner iteration (three non-blind).
 """
 
 from __future__ import annotations

@@ -37,6 +37,44 @@ def test_k1_kernel_matches_twin_on_gpu(mode, mk, nk):
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
+def _k1_case(dev, shape, mk, nk, mode):
+    a = torch.rand(shape, device=dev)
+    k = torch.rand((shape[0], mk, nk), device=dev)
+    got = cuda_conv.conv_planar(a, k, mode)
+    ref = cuda_conv.conv_planar_plain(a, k, mode)
+    assert got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(got, cuda_conv.conv_planar(a, k, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["valid", "same", "full"])
+@pytest.mark.parametrize("mk,nk", [(3, 3), (5, 5), (7, 7), (9, 9), (11, 5), (31, 31)])
+@pytest.mark.parametrize("shape", [(1, 70, 132), (3, 45, 101)])
+def test_k1_sizes_and_staging_on_gpu(shape, mk, nk, mode):
+    """The unrolled (3, 5, 7, 9) and run-time (11x5, 31x31) instances;
+    W = 132 takes the 16-byte staging copies where the mode's column offset
+    is a multiple of 4, W = 101 the 4-byte ones; neither plane is a
+    multiple of the tile.  Bitwise reproducible."""
+    _k1_case(_need_gpu(), shape, mk, nk, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mk,nk", [((1, 5, 4), 9, 9), ((3, 6, 7), 31, 31),
+                                         ((3, 2, 3), 3, 5)])
+def test_k1_plane_smaller_than_kernel_full_on_gpu(shape, mk, nk):
+    _k1_case(_need_gpu(), shape, mk, nk, "full")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["valid", "full"])
+@pytest.mark.parametrize("mk", [3, 9, 13])
+def test_k1_persistent_ring_on_gpu(mode, mk):
+    """A plane of a few hundred tiles: every block walks several tiles
+    through the two-stage ring (8 rows per thread)."""
+    _k1_case(_need_gpu(), (3, 300, 1030), mk, mk, mode)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mk", [3, 9, 17])
 def test_k3_kernel_matches_twin_on_gpu(mk):
@@ -61,6 +99,32 @@ def test_k2_kernel_matches_twin_on_gpu(blind, corr):
     kw = dict(step_factor=1e-3, lambd=1000.0, blind=blind, correlation=corr)
     got = cuda_solver.inner_loop_planar(u.clone(), image, psf, **kw)
     again = cuda_solver.inner_loop_planar(u.clone(), image, psf, **kw)
+    ref = cuda_solver.inner_loop_plain(u.clone(), image, psf, **kw)
+    for g, a, r in zip(got, again, ref):
+        assert float((g - r).abs().max()) <= 1e-5 * max(float(r.abs().max()), 1.0)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blind,corr", [(False, False), (True, False), (True, True)])
+@pytest.mark.parametrize("mk,m", [(3, 45), (5, 61), (7, 100), (9, 83), (11, 50)])
+def test_k2_sizes_and_tiles_on_gpu(mk, m, blind, corr):
+    """The unrolled (3, 5, 7, 9) and run-time (11) instances on windows that
+    are not a multiple of the 32-column tile, on a blocky scene (uniform
+    noise makes the DoF blend chaotic).  Bitwise reproducible."""
+    dev = _need_gpu()
+    gen = torch.Generator().manual_seed(mk * 1000 + m)
+    cells = torch.rand((3, m // 4 + 1, m // 4 + 1), generator=gen) * 0.6 + 0.2
+    image = cells.repeat_interleave(4, 1).repeat_interleave(4, 2)[:, :m, :m].contiguous().to(dev)
+    pad = mk // 2
+    u = torch.nn.functional.pad(image[None], (pad,) * 4, mode="replicate")[0].contiguous()
+    psf = torch.rand((3, mk, mk), generator=gen).to(dev) + 0.5
+    psf = (psf / psf.sum(dim=(1, 2), keepdim=True)).contiguous()
+    kw = dict(step_factor=1e-3, lambd=1e4, blind=blind, correlation=corr)
+    before = cuda_solver.launches
+    got = cuda_solver.inner_loop_planar(u.clone(), image, psf, **kw)
+    again = cuda_solver.inner_loop_planar(u.clone(), image, psf, **kw)
+    assert cuda_solver.launches == before + 2
     ref = cuda_solver.inner_loop_plain(u.clone(), image, psf, **kw)
     for g, a, r in zip(got, again, ref):
         assert float((g - r).abs().max()) <= 1e-5 * max(float(r.abs().max()), 1.0)
