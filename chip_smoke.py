@@ -23,8 +23,9 @@ Phases:
      in precision 'high', in 'mixed' and with use_tv: the launch counters
      are zeroed just before each run; K1-K3 must be > 0 after the exact
      run, K4s after 'high', K4 after 'mixed' and K5 after use_tv; then one
-     more exact run under torch.profiler: each kernel's summed device time
-     and launches, K1 split into full frames and blind windows;
+     more exact, high and mixed run each under torch.profiler: each kernel's
+     summed device time and launches, K1, K4s and K4 split into full frames
+     and blind windows;
   6. the command line (``ics_tpu_torch.cli.main``) on the card, TIFF in and
      TIFF out: ``bilateral``, ``bilateral-lab``, ``usm`` and ``tv-denoise``
      with their defaults on the 24 MP frame (K6 > 0 after each bilateral
@@ -342,13 +343,17 @@ def phase_kernels(torch, dev, rng) -> dict:
                               **_bound(nbytes, 2 * mk * mk * err_t.numel(), "f32"))
     rows["K3"]["max_abs_err"] = k3_err
 
-    # K4s and K4 at the 24 MP non-blind shapes and the 369^2 7x7 window
+    # K4s and K4 at the 24 MP non-blind shapes, the 520^2 op-loop window
+    # (what K4s takes under 'high'), the 369^2 7x7 window and a plane of odd
+    # width (a pyramid level's size; K4 stages it with plain loads)
     for name in ("K4s", "K4"):
         worst = 0.0
         for label, shape, mk, mode, reps in [
             ("24MP 9x9 valid", (3, 4012, 6012), 9, "valid", 5),
             ("24MP 9x9 full", (3, 4004, 6004), 9, "full", 5),
+            ("520^2 9x9 valid", (3, 520, 520), 9, "valid", 20),
             ("369^2 7x7 valid", (3, 369, 369), 7, "valid", 20),
+            ("odd width 2837x4251 9x9 full", (3, 2837, 4251), 9, "full", 5),
         ]:
             a = torch.rand(shape, dtype=torch.float32, device=dev) * 0.75 + 0.15
             k = t(rng.uniform(0.05, 1.0, (3, mk, mk)))
@@ -565,7 +570,8 @@ def phase_pipelines(torch, dev) -> dict:
         _require(all(counts[n] > 0 for n in names),
                  f"{', '.join(names)} launched on the 24 MP {label} path")
         launches.update({n: counts[n] for n in names})
-    profile_exact(torch, pic24, kw24)
+    for precision in ("exact", "high", "mixed"):
+        profile_run(torch, pic24, kw24, precision)
     return launches, pic19, out19, pic24
 
 
@@ -574,41 +580,54 @@ _KERNEL_NAMES = [("conv2d_kernel", "K1"), ("inner_loop_kernel", "K2"), ("psf_gra
                  ("tv_kernel", "K5"), ("bilateral_kernel", "K6")]
 
 
-def profile_exact(torch, pic24, kw24) -> None:
-    """One more 24 MP exact run under torch.profiler: each kernel's summed
-    device time and launches, K1 split by shape class (a full frame, or a
-    blind window of at most 600x600: the op loop's 369^2 and 520^2 levels)."""
+# the wrappers whose launches are split by shape class in the profile
+_BY_SHAPE = {"K1": ("cuda_conv", "conv_planar"), "K4s": ("cuda_conv_mma", "conv_split"),
+             "K4": ("cuda_conv_mma", "conv_bf16")}
+
+
+def profile_run(torch, pic24, kw24, precision: str) -> None:
+    """One more 24 MP run in ``precision`` under torch.profiler: each
+    kernel's summed device time and launches, K1, K4s and K4 split by shape
+    class (a full frame, or a blind window of at most 600x600: the op
+    loop's 369^2 and 520^2 levels)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ics_tpu_torch.ops import cuda_conv
+    from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma
 
-    classes = []  # one entry per K1 launch, in launch order
-    original = cuda_conv.conv_planar
+    mods = {"cuda_conv": cuda_conv, "cuda_conv_mma": cuda_conv_mma}
+    classes = {kid: [] for kid in _BY_SHAPE}  # per kernel, one entry per launch
+    originals = {kid: getattr(mods[m], f) for kid, (m, f) in _BY_SHAPE.items()}
 
-    def classified(a, k, mode):
-        if a.device.type == "cuda":
-            classes.append("window" if a.shape[1] * a.shape[2] <= 600 * 600 else "frame")
-        return original(a, k, mode)
+    def classified(kid):
+        def call(a, k, mode):
+            if a.device.type == "cuda":
+                size = a.shape[1] * a.shape[2]
+                classes[kid].append("window" if size <= 600 * 600 else "frame")
+            return originals[kid](a, k, mode)
+        return call
 
-    cuda_conv.conv_planar = classified
+    for kid, (m, f) in _BY_SHAPE.items():
+        setattr(mods[m], f, classified(kid))
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            _deblur(torch, pic24, "cuda", **kw24, precision="exact")
+            _deblur(torch, pic24, "cuda", **kw24, precision=precision)
             wall = time.perf_counter() - t0
     finally:
-        cuda_conv.conv_planar = original
+        for kid, (m, f) in _BY_SHAPE.items():
+            setattr(mods[m], f, originals[kid])
     kernels = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
     sums, other = {}, {}
-    k1_seen = 0
+    seen = {kid: 0 for kid in _BY_SHAPE}
     for e in kernels:
         us = e.time_range.elapsed_us()
         kid = next((k for frag, k in _KERNEL_NAMES if frag in e.name), None)
-        if kid == "K1":
-            kid = f"K1 {classes[k1_seen] if k1_seen < len(classes) else 'unmatched'}"
-            k1_seen += 1
+        if kid in seen:
+            i = seen[kid]
+            kid = f"{kid} {classes[kid][i] if i < len(classes[kid]) else 'unmatched'}"
+            seen[kid.split()[0]] += 1
         if kid is None:
             n, t = other.get(e.name, (0, 0.0))
             other[e.name] = (n + 1, t + us)
@@ -616,11 +635,12 @@ def profile_exact(torch, pic24, kw24) -> None:
         n, t = sums.get(kid, (0, 0.0))
         sums[kid] = (n + 1, t + us)
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
-    _require(k1_seen == len(classes), "profiler: one K1 kernel per K1 launch")
-    print(f"profile 24MP exact: wall {wall:.3f} s (profiled), device busy {busy:.3f} s, "
+    _require(all(seen[k] == len(classes[k]) for k in seen),
+             f"profiler {precision}: one K1/K4s/K4 kernel per wrapper launch")
+    print(f"profile 24MP {precision}: wall {wall:.3f} s (profiled), device busy {busy:.3f} s, "
           f"busy share {busy / wall:.3f}")
     report = {k: {"launches": n, "device_s": t / 1e6} for k, (n, t) in sorted(sums.items())}
-    print("profile 24MP exact kernels: " + json.dumps(report))
+    print(f"profile 24MP {precision} kernels: " + json.dumps(report))
     top = sorted(other.items(), key=lambda kv: -kv[1][1])[:8]
     for name, (n, t) in top:
         print(f"  other: {t / 1e6:.4f} s, {n} launches, {name[:100]}")

@@ -49,9 +49,10 @@ _SIGNATURES = {
     "ics_inner_loop": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                        _I, _I, _I, _P],
-    # a, taps, out, C, H, W, MK, NK, plo, qlo, Ho, Wo, stream
-    "ics_conv_mma_split": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "ics_conv_mma_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # a, taps, out, C, H, W, MK, NK, plo, qlo, Ho, Wo,
+    # inst, tile_rows, grid, smem (ops/cuda_conv_mma.py::geometry), stream
+    "ics_conv_mma_split": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ics_conv_mma_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # u, tv, div, C, H, W, order, norm, eps, eps2, sqrt2, adjust, is_bf16, stream
     "ics_tv": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
     # src, out, C, H, W, radius, inv2si2, norm_i, inv2ss2, norm_s, stream

@@ -162,6 +162,79 @@ def test_k4_kernel_matches_twin_on_gpu(mode, mk, nk):
     assert bool(((got.float() - ref).abs() <= ulp).all())
 
 
+def _k4_case(dev, split, shape, mk, nk, mode):
+    """K4s (split) or K4 against its twin, and bitwise equal on a second run."""
+    gen = torch.Generator().manual_seed(shape[1] * 1000 + shape[2] + mk * 31 + nk)
+    a = (torch.rand(shape, generator=gen) + 0.1).to(dev)
+    k = (torch.rand((shape[0], mk, nk), generator=gen) + 0.1).to(dev)
+    if split:
+        kern, plain, counter = cuda_conv_mma.conv_split, cuda_conv_mma.conv_split_plain, "split"
+    else:
+        a, k = a.bfloat16(), k.bfloat16()
+        kern, plain, counter = cuda_conv_mma.conv_bf16, cuda_conv_mma.conv_bf16_plain, "bf16"
+    before = getattr(cuda_conv_mma, f"{counter}_launches")
+    got = kern(a, k, mode)
+    assert getattr(cuda_conv_mma, f"{counter}_launches") == before + 1
+    ref = plain(a, k, mode)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if split:
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    else:  # within one bf16 ulp of each (positive) value
+        ref = ref.float()
+        ulp = torch.exp2(torch.floor(torch.log2(ref)) - 7)
+        assert bool(((got.float() - ref).abs() <= ulp).all())
+    assert torch.equal(got, kern(a, k, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["valid", "same", "full"])
+@pytest.mark.parametrize("mk,nk", [(3, 3), (5, 5), (7, 7), (9, 9), (2, 1), (5, 3), (9, 7),
+                                   (3, 5), (5, 8), (7, 9), (11, 13), (29, 31)])
+@pytest.mark.parametrize("shape", [(3, 77, 141), (2, 130, 200)])
+@pytest.mark.parametrize("split", [True, False])
+def test_k4_sizes_and_tiles_on_gpu(split, shape, mk, nk, mode):
+    """The unrolled (3, 5, 7, 9) and run-time instances, NK in {1, 3, 5, 7,
+    8, 9, 13, 31} with MK != NK, on planes that are not a multiple of the
+    64-column tile; 141 is odd, so the bf16 plane takes the plain loads."""
+    _k4_case(_need_gpu(), split, shape, mk, nk, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mk,nk,mode", [
+    ((1, 5, 4), 9, 9, "full"), ((3, 6, 7), 31, 31, "full"), ((3, 2, 3), 3, 5, "full"),
+    ((1, 10, 20), 3, 3, "valid"), ((2, 15, 63), 9, 9, "same"),
+])
+@pytest.mark.parametrize("split", [True, False])
+def test_k4_planes_smaller_than_a_tile_on_gpu(split, shape, mk, nk, mode):
+    """Planes smaller than one tile, and smaller than the kernel in full."""
+    _k4_case(_need_gpu(), split, shape, mk, nk, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["valid", "full"])
+@pytest.mark.parametrize("mk", [3, 9, 13])
+@pytest.mark.parametrize("split", [True, False])
+def test_k4_ring_tail_on_gpu(split, mk, mode):
+    """Blocks walk several tiles through the ring, and the tile count is
+    not a multiple of the grid: the last turn is ragged."""
+    dev = _need_gpu()
+    c, h, w = 3, 1000, 2200
+    ho, wo = (h - mk + 1, w - mk + 1) if mode == "valid" else (h + mk - 1, w + mk - 1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = cuda_conv_mma.geometry(split, c, ho, wo, mk, mk, sms)
+    assert g.n_tiles > g.grid and g.n_tiles % g.grid != 0
+    _k4_case(dev, split, (c, h, w), mk, mk, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,nk,mode", [((3, 45, 101), 9, "valid"), ((3, 45, 101), 3, "full"),
+                                           ((2, 64, 130), 3, "same"), ((1, 33, 257), 7, "same")])
+def test_k4_odd_bf16_planes_take_plain_loads_on_gpu(shape, nk, mode):
+    """bf16 planes of odd width, or an odd column offset (same mode with 3
+    or 7 taps: qlo = 1 or 3), are staged with plain 2-byte loads."""
+    _k4_case(_need_gpu(), False, shape, nk, nk, mode)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("order,norm", [(1, 1), (1, 2), (2, 1), (2, 2)])

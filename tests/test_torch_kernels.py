@@ -123,6 +123,71 @@ def test_k4_twin_matches_pallas_bf16_kernel(mode, mk, nk, zero_launches):
     assert np.all(np.abs(got - want) <= ulp)
 
 
+_K4_SHAPES = [(3, 4004, 6004), (3, 512, 512), (3, 361, 361), (3, 1000, 1100), (1, 5, 4),
+              (2, 130, 200), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("mk", range(1, cuda_conv_mma.MAX_TAPS_SIDE + 1))
+@pytest.mark.parametrize("split", [True, False])
+def test_k4_geometry_fits_the_card(split, mk):
+    """Every tap size and plane: the block's shared memory stays under the
+    227 KB one block may use, at least one block fits on an SM, and the
+    grid never exceeds the tiles (every block owns a first tile)."""
+    for nk in range(1, cuda_conv_mma.MAX_TAPS_SIDE + 1):
+        for c, ho, wo in _K4_SHAPES:
+            g = cuda_conv_mma.geometry(split, c, ho, wo, mk, nk, 132)
+            assert g.smem == cuda_conv_mma.smem_bytes(split, g.inst, g.tile_rows, mk, nk)
+            assert g.smem <= cuda_conv_mma.SMEM_OPT_IN < 227 * 1024 + 1
+            assert g.smem + 1024 <= cuda_conv_mma.SMEM_PER_SM
+            assert g.tile_rows in cuda_conv_mma.TILE_ROWS
+            assert 1 <= g.grid <= g.n_tiles
+
+
+def _k4_walk(g, c, ho, wo):
+    """The kernel's persistent walk: block b takes tiles b, b + grid, ...;
+    tile t is (channel, row tile, column tile) with the column fastest
+    (csrc/conv_mma.cu tile_at).  Returns the output count of each pixel."""
+    n_ct = -(-wo // cuda_conv_mma.TILE_W)
+    n_rt = -(-ho // g.tile_rows)
+    assert g.n_tiles == c * n_rt * n_ct
+    seen = np.zeros((c, ho, wo), np.int32)
+    for block in range(g.grid):
+        for t in range(block, g.n_tiles, g.grid):
+            ct, rest = t % n_ct, t // n_ct
+            ch, i0, j0 = rest // n_rt, (rest % n_rt) * g.tile_rows, ct * cuda_conv_mma.TILE_W
+            seen[ch, i0 : i0 + g.tile_rows, j0 : j0 + cuda_conv_mma.TILE_W] += 1
+    return seen
+
+
+@pytest.mark.parametrize("shape", [(3, 361, 361), (3, 512, 512), (3, 1000, 1100), (1, 5, 4),
+                                   (2, 130, 200), (3, 77, 141)])
+@pytest.mark.parametrize("split", [True, False])
+def test_k4_persistent_walk_covers_every_tile_once(split, shape):
+    """Each output pixel is written by exactly one tile of one block, with
+    planes that are not a multiple of the tile and tile counts that are not
+    a multiple of the grid (the ring's tail)."""
+    c, ho, wo = shape
+    for sms in (132, 7):
+        g = cuda_conv_mma.geometry(split, c, ho, wo, 9, 9, sms)
+        assert np.array_equal(_k4_walk(g, c, ho, wo), np.ones((c, ho, wo), np.int32))
+    # a plane that gives blocks several tiles and a ragged last turn
+    g = cuda_conv_mma.geometry(split, 3, 1000, 2200, 9, 9, 132)
+    assert g.n_tiles > g.grid and g.n_tiles % g.grid != 0
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("mk,nk,inst", [(3, 3, 3), (5, 5, 5), (7, 7, 7), (9, 9, 9), (9, 5, 0),
+                                        (1, 1, 0), (11, 11, 0), (31, 31, 0), (3, 5, 0),
+                                        (8, 8, 0)])
+def test_k4_unrolled_sizes_pick_their_instance(split, mk, nk, inst):
+    g = cuda_conv_mma.geometry(split, 3, 4004, 6004, mk, nk, 132)
+    assert g.inst == inst
+    # the B table: every K4s instance reads it, K4 only at run-time sizes
+    table = mk * ((8 + nk - 1 + 15) // 16) * 32 * (16 if split else 8)
+    with_table = cuda_conv_mma.smem_bytes(split, 0, g.tile_rows, mk, nk)
+    assert g.smem == (with_table if split or inst == 0 else with_table - table)
+
+
 def test_split_hi_lo_matches_jax():
     from ics_tpu.ops.pallas_conv_mxu import _split_hi_lo
 
