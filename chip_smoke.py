@@ -4,28 +4,34 @@
     python3 chip_smoke.py     # one GPU, a few minutes with the kernel build
 
 Phases:
-  1. probe: the card (nvidia-smi), torch.version.cuda, nvcc, kernel build;
+  1. probe: the card and its driver (nvidia-smi), torch.version.cuda, nvcc,
+     kernel build;
   2. each hand-written kernel (K1 conv, K2 inner loop, K3 PSF gradient, K4s
      split and K4 bf16 tensor-core convs, K5 TV stencil, K6 bilateral
      filter) against its plain PyTorch twin on the card, at its path's
      shapes, with CUDA-event median times of both and of the one PyTorch
      call that computes the same function where there is one, taken in
-     turns; every kernel runs twice and must be bitwise equal; K2 also
+     turns (the kernel's also as device time alone, ``device_ms``); every
+     kernel runs twice, the card synchronized after each call so that a
+     fault names its kernel, and must be bitwise equal; K2 also
      runs at the op loop's 24 MP windows beside the op loop (informational).  Each kernel's bound
      (the least time the card could take: bytes over 3.35 TB/s or operations
      over the peak rate of their type, whichever is larger) is computed
-     from the shapes;
+     from the shapes (K6's also counts the exponentials the function needs
+     at the SFU's rate);
   3. the crop-scale pipeline on CUDA against the same pipeline on the CPU
      (SSIM of the uint16 outputs), in exact, mixed, high, fast and use_tv
      under each tv_norm;
-  4. the 1.9 MP reference case (bench.py's kwargs) on a synthetic scene;
+  4. the 1.9 MP reference case (bench.py's kwargs) on a synthetic scene,
+     then again with ``inner_loop='xla'`` (the op loop with K3 where
+     'auto' runs K2: K3 > 0, K2 == 0, SSIM >= 0.999 against 'auto');
   5. the 24 MP case (bench.py's kwargs) in exact f32, the main path, then
      in precision 'high', in 'mixed' and with use_tv: the launch counters
      are zeroed just before each run; K1-K3 must be > 0 after the exact
      run, K4s after 'high', K4 after 'mixed' and K5 after use_tv; then one
      more exact, high and mixed run each under torch.profiler: each kernel's
      summed device time and launches, K1, K4s and K4 split into full frames
-     and blind windows;
+     and blind windows, and one psf_grad kernel per K3 call;
   6. the command line (``ics_tpu_torch.cli.main``) on the card, TIFF in and
      TIFF out: ``bilateral``, ``bilateral-lab``, ``usm`` and ``tv-denoise``
      with their defaults on the 24 MP frame (K6 > 0 after each bilateral
@@ -62,14 +68,20 @@ def _require(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def _median_ms(torch, fn, reps: int) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, after a warm-up."""
+def _median_ms(torch, fn, reps: int, device_only: bool = False) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs, after a warm-up,
+    the GPU idle at each start event: a call shorter than its wrapper's host
+    time reads that host time.  With ``device_only``, a 0.1 ms sleep kernel
+    ahead of each start event keeps the GPU busy while the host enqueues the
+    call, so the time is the call's device time alone."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(200_000)
         start.record()
         fn()
         end.record()
@@ -79,27 +91,36 @@ def _median_ms(torch, fn, reps: int) -> float:
 
 
 def _time_turns(torch, kernel, plain, lib, reps: int):
-    """(kernel ms, plain ms, library ms or None), timed in turns plain, lib,
-    kernel, kernel, lib, plain; each the mean of its two medians."""
+    """(kernel ms, plain ms, library ms or None, kernel device ms), timed in
+    turns plain, lib, kernel, kernel device, kernel device, kernel, lib,
+    plain; each the mean of its two medians."""
     p1 = _median_ms(torch, plain, reps)
     l1 = _median_ms(torch, lib, reps) if lib else None
     k1 = _median_ms(torch, kernel, reps)
+    d1 = _median_ms(torch, kernel, reps, device_only=True)
+    d2 = _median_ms(torch, kernel, reps, device_only=True)
     k2 = _median_ms(torch, kernel, reps)
     l2 = _median_ms(torch, lib, reps) if lib else None
     p2 = _median_ms(torch, plain, reps)
-    return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2 if lib else None
+    return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2 if lib else None, (d1 + d2) / 2
 
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense peaks without sparsity
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+# the SFU (ex2 and the other MUFU operations): 16 per clock per SM on
+# compute capability 9.0 (NVIDIA's CUDA C++ documentation, the table of
+# arithmetic instruction throughput), at the clock the f32 peak implies (67e12 / (132 SMs x 128
+# lanes x 2)): 132 x 16 x 1.98 GHz
+SFU_OPS_PER_S = 67e12 / 16
 
 
-def _bound(nbytes: float, ops: float, kind: str) -> dict:
+def _bound(nbytes: float, ops: float, kind: str, sfu: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the peak rate of their type."""
+    memory rate, the operations over the peak rate of their type and the
+    SFU operations over the SFU's rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    t_ops = max(ops / PEAK_OPS_PER_S[kind], sfu / SFU_OPS_PER_S) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -176,6 +197,21 @@ def _lib_agrees(torch, label: str, got, ref) -> None:
     _require(rel <= LIB_TOL, f"{label}: the library call computes the same function")
 
 
+def _twice(torch, label: str, fn) -> list:
+    """Two calls of a kernel's wrapper, the card synchronized before the
+    first and after each: CUDA reports a kernel's fault at a later call, so
+    this names the kernel (or the work before it) that faulted."""
+    outs = []
+    for stage in ("the inputs", "the first call", "the second call"):
+        try:
+            if stage != "the inputs":
+                outs.append(fn())
+            torch.cuda.synchronize()
+        except Exception as exc:
+            raise SmokeFailure(f"{label}, {stage}: {type(exc).__name__}: {exc}") from exc
+    return outs
+
+
 def _ulps(torch, got, ref) -> float:
     """Largest |got - ref| in bf16 ulps of each (positive) ref value."""
     ref = ref.float()
@@ -223,25 +259,24 @@ def phase_kernels(torch, dev, rng) -> dict:
     ]:
         a = torch.rand(shape, dtype=torch.float32, device=dev) * 0.75 + 0.15
         k = t(rng.uniform(0.0, 1.0, (3, mk, mk)))
-        got = cuda_conv.conv_planar(a, k, mode)
-        again = cuda_conv.conv_planar(a, k, mode)
+        got, again = _twice(torch, f"K1 {label}", lambda: cuda_conv.conv_planar(a, k, mode))
         ref = cuda_conv.conv_planar_plain(a, k, mode)
         err, rel = _rel(torch, got, ref)
         k1_err = max(k1_err, err)
         first = label == "24MP 9x9 valid"
-        ms, plain, lib = _time_turns(
+        ms, plain, lib, dev_ms = _time_turns(
             torch, lambda: cuda_conv.conv_planar(a, k, mode),
             lambda: cuda_conv.conv_planar_plain(a, k, mode),
             lib_conv(a, k) if first else None, reps,
         )
         print(f"K1 {label}: max_abs_err {err:.3e} rel {rel:.3e}; "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms"
+              f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain:.4f} ms"
               + (f", library conv2d {lib:.4f} ms" if first else ""))
         _require(rel <= REL_TOL, f"K1 {label} within {REL_TOL:g} of its twin")
         _require(torch.equal(got, again), f"K1 {label} bitwise reproducible")
         if first:
             _lib_agrees(torch, f"K1 {label}", lib_conv(a, k)()[0], ref)
-            rows["K1"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+            rows["K1"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
                               **conv_bound(shape, mk, 4, "f32"))
         del a, got, again, ref
     rows["K1"]["max_abs_err"] = k1_err
@@ -253,15 +288,16 @@ def phase_kernels(torch, dev, rng) -> dict:
         img, u0, psf = window(m, mk)
         for blind, corr in [(False, False), (True, False), (True, True)]:
             kw = dict(step_factor=1e-3, lambd=1e4, blind=blind, correlation=corr)
-            u1, p1, e1 = cuda_solver.inner_loop_planar(u0.clone(), img, psf, **kw)
-            u2, p2, e2 = cuda_solver.inner_loop_planar(u0.clone(), img, psf, **kw)
+            tag = f"{m + mk - 1}^2 mk {mk} blind={blind} corr={corr}"
+            (u1, p1, e1), (u2, p2, e2) = _twice(
+                torch, f"K2 {tag}",
+                lambda: cuda_solver.inner_loop_planar(u0.clone(), img, psf, **kw))
             ur, pr, er = cuda_solver.inner_loop_plain(u0.clone(), img, psf, **kw)
             eu, ru = _rel(torch, u1, ur)
             ep, rp = _rel(torch, p1, pr)
             ee = float(torch.max(torch.abs(e1 - er)))
             re = ee / float(torch.max(torch.abs(img)))
             k2_err = max(k2_err, eu, ep)
-            tag = f"{m + mk - 1}^2 mk {mk} blind={blind} corr={corr}"
             print(f"K2 {tag}: u {eu:.3e} (rel {ru:.3e}), psf {ep:.3e} "
                   f"(rel {rp:.3e}), err {ee:.3e} (rel to image {re:.3e})")
             _require(max(ru, rp, re) <= REL_TOL, f"K2 {tag} within {REL_TOL:g} of its twin")
@@ -271,11 +307,12 @@ def phase_kernels(torch, dev, rng) -> dict:
             )
             if (m, blind, corr) == (256, True, False):
                 uk = u0.clone()
-                ms, plain, _ = _time_turns(
+                ms, plain, _, dev_ms = _time_turns(
                     torch, lambda: cuda_solver.inner_loop_planar(uk, img, psf, **kw),
                     lambda: cuda_solver.inner_loop_plain(u0, img, psf, **kw), None, 20,
                 )
-                print(f"K2 {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms per outer")
+                print(f"K2 {tag}: kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+                      f"plain {plain:.4f} ms per outer")
                 # five blind inner steps: four convolutions each (residual,
                 # correlation, fresh residual, PSF-gradient dots) and about
                 # 10 operations per image pixel and 9 per window pixel;
@@ -284,7 +321,7 @@ def phase_kernels(torch, dev, rng) -> dict:
                 n_img, n_u = c * m * m, c * um * un
                 ops = 5 * (4 * 2 * mk * mk * n_img + 10 * n_img + 9 * n_u)
                 nbytes = 4 * (2 * n_u + 2 * n_img + 2 * c * mk * mk)
-                rows["K2"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                rows["K2"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=None,
                                   **_bound(nbytes, ops, "f32"))
     rows["K2"]["max_abs_err"] = k2_err
 
@@ -303,7 +340,7 @@ def phase_kernels(torch, dev, rng) -> dict:
         uk = u0.clone()
         ops_kw = dict(conv=partial(conv_planar, precision="exact"),
                       psf_grad=cuda_correlate.psf_gradient_planar, **kw)
-        ms, ops_ms, _ = _time_turns(
+        ms, ops_ms, _, _ = _time_turns(
             torch, lambda: cuda_solver.inner_loop_planar(uk, img, psf, **kw),
             lambda: cuda_solver.inner_loop_ops(u0, img, psf, **ops_kw), None, 10,
         )
@@ -316,8 +353,9 @@ def phase_kernels(torch, dev, rng) -> dict:
     for m, mk in [(363, 7), (512, 9)]:
         img, u, psf = window(m, mk)
         err_t = cuda_conv.conv_planar_plain(u, psf, "valid") - img
-        got = cuda_correlate.psf_gradient_planar(u, err_t)
-        again = cuda_correlate.psf_gradient_planar(u, err_t)
+        tag = f"{m + mk - 1}^2 mk {mk}"
+        got, again = _twice(torch, f"K3 {tag}",
+                            lambda: cuda_correlate.psf_gradient_planar(u, err_t))
         ref = cuda_correlate.psf_gradient_plain(u, err_t)
         err, rel = _rel(torch, got, ref)
         k3_err = max(k3_err, err)
@@ -325,22 +363,23 @@ def phase_kernels(torch, dev, rng) -> dict:
         # the weight (a cross-correlation), then the flip
         lib_fn = lambda: torch.flip(
             F.conv2d(u[None], err_t[:, None], groups=3)[0], (1, 2))
-        ms, plain, lib = _time_turns(
+        ms, plain, lib, dev_ms = _time_turns(
             torch, lambda: cuda_correlate.psf_gradient_planar(u, err_t),
             lambda: cuda_correlate.psf_gradient_plain(u, err_t),
             lib_fn if mk == 9 else None, 20,
         )
-        tag = f"{m + mk - 1}^2 mk {mk}"
+        nbytes = 4 * (u.numel() + err_t.numel() + 3 * mk * mk)
+        bound = _bound(nbytes, 2 * mk * mk * err_t.numel(), "f32")
         print(f"K3 {tag}: max_abs_err {err:.3e} rel {rel:.3e}; "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms"
+              f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})"
               + (f", library conv2d {lib:.4f} ms" if mk == 9 else ""))
         _require(rel <= REL_TOL, f"K3 {tag} within {REL_TOL:g} of its twin")
         _require(torch.equal(got, again), f"K3 {tag} bitwise reproducible")
         if mk == 9:
             _lib_agrees(torch, f"K3 {tag}", lib_fn(), ref)
-            nbytes = 4 * (u.numel() + err_t.numel() + 3 * mk * mk)
-            rows["K3"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                              **_bound(nbytes, 2 * mk * mk * err_t.numel(), "f32"))
+            rows["K3"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                              **bound)
     rows["K3"]["max_abs_err"] = k3_err
 
     # K4s and K4 at the 24 MP non-blind shapes, the 520^2 op-loop window
@@ -362,12 +401,13 @@ def phase_kernels(torch, dev, rng) -> dict:
             else:
                 a, k = a.bfloat16(), k.bfloat16()
                 kern, plain = cuda_conv_mma.conv_bf16, cuda_conv_mma.conv_bf16_plain
-            got, again, ref = kern(a, k, mode), kern(a, k, mode), plain(a, k, mode)
+            got, again = _twice(torch, f"{name} {label}", lambda: kern(a, k, mode))
+            ref = plain(a, k, mode)
             err, rel = _rel(torch, got, ref)
             first = label == "24MP 9x9 valid"
-            ms, plain_ms, lib = _time_turns(torch, lambda: kern(a, k, mode),
-                                            lambda: plain(a, k, mode),
-                                            lib_conv(a, k) if first else None, reps)
+            ms, plain_ms, lib, dev_ms = _time_turns(torch, lambda: kern(a, k, mode),
+                                                    lambda: plain(a, k, mode),
+                                                    lib_conv(a, k) if first else None, reps)
             if name == "K4s":
                 bound = f"within {REL_TOL:g} of its twin"
                 ok = rel <= REL_TOL
@@ -378,7 +418,7 @@ def phase_kernels(torch, dev, rng) -> dict:
                 ok = ulps <= 1.0
                 detail = f"{ulps:.2f} bf16 ulp"
             print(f"{name} {label}: max_abs_err {err:.3e} {detail}; "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                  f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms"
                   + (f", library conv2d {lib:.4f} ms" if first else ""))
             _require(ok, f"{name} {label} {bound}")
             _require(torch.equal(got, again), f"{name} {label} bitwise reproducible")
@@ -387,7 +427,7 @@ def phase_kernels(torch, dev, rng) -> dict:
                 # K4s: three bf16 products of the f32 operands' halves
                 # (the function is the f32 conv); K4: one, on bf16 operands
                 itemsize, products = (4, 3) if name == "K4s" else (2, 1)
-                rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                rows[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib,
                                   **conv_bound(shape, mk, itemsize, "bf16", products))
             del a, got, again, ref
         rows[name]["max_abs_err"] = worst
@@ -399,18 +439,17 @@ def phase_kernels(torch, dev, rng) -> dict:
                                (1, 1, torch.float32), (1, 2, torch.float32),
                                (2, 2, torch.bfloat16)]:
         x = u.to(dtype)
-        got = cuda_tv.tv_planar(x, 1e-6, order, norm)
-        again = cuda_tv.tv_planar(x, 1e-6, order, norm)
+        tag = f"24MP order {order} L{norm} {str(dtype).split('.')[-1]}"
+        got, again = _twice(torch, f"K5 {tag}", lambda: cuda_tv.tv_planar(x, 1e-6, order, norm))
         ref = cuda_tv.tv_planar_plain(x, 1e-6, order, norm)
         errs = [_rel(torch, g, r) for g, r in zip(got, ref)]
         err, rel = max(e for e, _ in errs), max(r for _, r in errs)
-        ms, plain_ms, _ = _time_turns(torch, lambda: cuda_tv.tv_planar(x, 1e-6, order, norm),
-                                      lambda: cuda_tv.tv_planar_plain(x, 1e-6, order, norm),
-                                      None, 5)
-        tag = f"24MP order {order} L{norm} {str(dtype).split('.')[-1]}"
+        ms, plain_ms, _, dev_ms = _time_turns(
+            torch, lambda: cuda_tv.tv_planar(x, 1e-6, order, norm),
+            lambda: cuda_tv.tv_planar_plain(x, 1e-6, order, norm), None, 5)
         bitwise = all(torch.equal(g, r) for g, r in zip(got, ref))
         print(f"K5 {tag}: max_abs_err {err:.3e} rel {rel:.3e} (bitwise equal to twin: "
-              f"{bitwise}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"{bitwise}); kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms")
         _require(rel <= REL_TOL, f"K5 {tag} within {REL_TOL:g} of its twin")
         _require(all(torch.equal(g, h) for g, h in zip(got, again)),
                  f"K5 {tag} bitwise reproducible")
@@ -418,7 +457,7 @@ def phase_kernels(torch, dev, rng) -> dict:
         if (order, norm, dtype) == (2, 2, torch.float32):
             # order 2, L2: about 31 operations per interior pixel; one read,
             # two writes
-            rows["K5"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+            rows["K5"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
                               **_bound(4 * 3 * x.numel(), 31 * x.numel(), "f32"))
         del x, got, again, ref
     rows["K5"]["max_abs_err"] = worst
@@ -436,22 +475,35 @@ def phase_kernels(torch, dev, rng) -> dict:
     ]:
         x = torch.rand(shape, dtype=torch.float32, device=dev) * scale
         args = (radius, std_i, 5.0)
-        got = cuda_bilateral.bilateral_planar(x, *args)
-        again = cuda_bilateral.bilateral_planar(x, *args)
+        got, again = _twice(torch, f"K6 {label}",
+                            lambda: cuda_bilateral.bilateral_planar(x, *args))
         ref = cuda_bilateral.bilateral_planar_plain(x, *args)
         err, rel = _rel(torch, got, ref)
         line = f"K6 {label}: max_abs_err {err:.3e} rel {rel:.3e}"
         if reps:
-            ms, plain_ms, _ = _time_turns(
+            ms, plain_ms, _, dev_ms = _time_turns(
                 torch, lambda: cuda_bilateral.bilateral_planar(x, *args),
                 lambda: cuda_bilateral.bilateral_planar_plain(x, *args), None, reps,
             )
-            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            line += f"; kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms"
             # per pixel and offset: difference, square, scale, exp, two
-            # products, multiply-add (2) and add; one division per pixel
+            # products, multiply-add (2) and add; one division per pixel.
+            # The exponentials the function needs go to the SFU: the
+            # centre's weight is 1 and w(p, d) = w(p + d, -d), so
+            # (offsets - 1) / 2 per pixel
             offsets = (2 * radius + 1) ** 2
-            rows["K6"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                              **_bound(8 * x.numel(), (9 * offsets + 1) * x.numel(), "f32"))
+            nbytes, ops = 8 * x.numel(), (9 * offsets + 1) * x.numel()
+            exps = (offsets - 1) // 2 * x.numel()
+            rows["K6"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                              **_bound(nbytes, ops, "f32", sfu=exps))
+            f32_ms = ops / PEAK_OPS_PER_S["f32"] * 1e3
+            sfu_ms, one_each_ms = (e / SFU_OPS_PER_S * 1e3
+                                   for e in (exps, offsets * x.numel()))
+            line += (f"; bound {rows['K6']['bound_ms']:.4f} ms ({rows['K6']['bound_by']}; "
+                     f"{rows['K6']['bound_ms'] / ms:.1%} of it): f32 operations "
+                     f"{f32_ms:.4f} ms, SFU {sfu_ms:.4f} ms at {(offsets - 1) // 2} "
+                     f"exponentials per pixel ({one_each_ms:.4f} ms at one per offset, "
+                     f"as this kernel computes them)")
         print(line)
         _require(rel <= REL_TOL, f"K6 {label} within {REL_TOL:g} of its twin")
         _require(torch.equal(got, again), f"K6 {label} bitwise reproducible")
@@ -544,6 +596,17 @@ def phase_pipelines(torch, dev) -> dict:
     _report("1.9MP 1367x1394", wall, comp, levels)
     print(f"1.9MP SSIM vs sharp: blurred {ssim(pic19 / 255.0, sharp19):.4f}, "
           f"deblurred {ssim(out19 / 65535.0, sharp19):.4f} (informational)")
+    # the same case with inner_loop='xla': the op loop, with K3, on the
+    # blind windows that take K2 under 'auto'
+    _zero_counters()
+    out_xla, wall, comp, levels = _deblur(torch, pic19, "cuda", inner_loop="xla", **kw19)
+    counts = _counters()
+    _report("1.9MP 1367x1394 inner_loop='xla'", wall, comp, levels)
+    s = ssim(out_xla / 65535.0, out19 / 65535.0)
+    print(f"1.9MP inner_loop='xla' launches: {json.dumps(counts)}; SSIM against 'auto' {s:.6f}")
+    _require(counts["K3"] > 0 and counts["K2"] == 0,
+             "inner_loop='xla' runs the op loop: K3 launched, K2 not")
+    _require(s >= 0.999, "inner_loop='xla' SSIM >= 0.999 against 'auto'")
 
     # 5. the 24 MP case (bench.py:336-348): the main path in exact f32, then
     # the paths of K4s, K4 and K5; the counters are zeroed just before each
@@ -609,10 +672,12 @@ def profile_run(torch, pic24, kw24, precision: str) -> None:
     for kid, (m, f) in _BY_SHAPE.items():
         setattr(mods[m], f, classified(kid))
     try:
+        _zero_counters()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             _deblur(torch, pic24, "cuda", **kw24, precision=precision)
             wall = time.perf_counter() - t0
+        counts = _counters()
     finally:
         for kid, (m, f) in _BY_SHAPE.items():
             setattr(mods[m], f, originals[kid])
@@ -637,6 +702,9 @@ def profile_run(torch, pic24, kw24, precision: str) -> None:
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     _require(all(seen[k] == len(classes[k]) for k in seen),
              f"profiler {precision}: one K1/K4s/K4 kernel per wrapper launch")
+    k3_kernels = sums.get("K3", (0, 0.0))[0]
+    print(f"profile 24MP {precision}: {k3_kernels} psf_grad kernels, K3 launches {counts['K3']}")
+    _require(k3_kernels == counts["K3"], f"profiler {precision}: one psf_grad kernel per K3 call")
     print(f"profile 24MP {precision}: wall {wall:.3f} s (profiled), device busy {busy:.3f} s, "
           f"busy share {busy / wall:.3f}")
     report = {k: {"launches": n, "device_s": t / 1e6} for k, (n, t) in sorted(sums.items())}
@@ -730,7 +798,12 @@ def main() -> int:
     print(f"card: {smi}")
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
-    print(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, nvcc: {nvcc}")
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, nvcc: {nvcc}, "
+          f"driver {driver}")
     t0 = time.perf_counter()
     _build.load_library()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
@@ -755,7 +828,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
          "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
-         "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
+         "device_ms": rows[name]["device_ms"], "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
          "bound_by": rows[name]["bound_by"], "library_ms": rows[name]["library_ms"],
          "lib_ms": rows[name]["library_ms"]}
         for name, (src, rep) in sources.items()

@@ -39,8 +39,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # a, taps, out, C, H, W, MK, NK, plo, qlo, Ho, Wo, stream
     "ics_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # u, err, partial, out, C, uM, uN, M, N, band_rows, n_bands, stream
-    "ics_psf_grad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # u, err, partial, out, C, uM, uN, M, N, inst, tb, tr, ws, n_strips,
+    # stage_w, band_rows, n_bands, grid, smem (ops/cuda_correlate.py::geometry),
+    # stream
+    "ics_psf_grad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _P],
+    # per_sm (out), inst, tb
+    "ics_psf_grad_occupancy": [ctypes.POINTER(_I), _I, _I],
     # n_blocks (out), device
     "ics_inner_loop_blocks": [ctypes.POINTER(_I), _I],
     # u, image, psf_in, psf_out, err, ut, greg, dof, partial,
@@ -55,8 +60,9 @@ _SIGNATURES = {
     "ics_conv_mma_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # u, tv, div, C, H, W, order, norm, eps, eps2, sqrt2, adjust, is_bf16, stream
     "ics_tv": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
-    # src, out, C, H, W, radius, inv2si2, norm_i, inv2ss2, norm_s, stream
-    "ics_bilateral": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
+    # src, out, C, H, W, radius, s, a (ops/cuda_bilateral.py::_kernel_constants),
+    # stream
+    "ics_bilateral": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
 }
 
 _lock = threading.Lock()

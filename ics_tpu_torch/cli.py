@@ -220,8 +220,10 @@ def main(argv=None, device="cuda") -> int:
                    help="TV channel coupling with --use-tv")
     p.add_argument("--inner-loop", default="auto",
                    choices=["auto", "xla", "pallas", "pallas_unrolled"],
-                   help="only 'auto' is ported: the inner loop is picked from "
-                        "the device and the window size")
+                   help="xla=the op-level inner loop; pallas / pallas_unrolled="
+                        "the one-launch inner-loop kernel where it takes the "
+                        "window and mode; auto=the kernel on the GPU where it "
+                        "takes them")
     p.add_argument("--early-stop", type=float, default=0.0, metavar="R",
                    help="stop a NON-BLIND pyramid level once the whiteness "
                         "metric stops improving by cumulative relative R over "

@@ -165,7 +165,7 @@ def deblur_module(
 
     Ported: the ``mm`` solver, blind then non-blind, in every ``precision``
     ('exact', 'high', 'mixed', 'fast', 'hybrid', 'hybrid-high'), with
-    ``use_tv`` / ``tv_norm``, ``preview``, ``blind_budget``,
+    ``use_tv`` / ``tv_norm``, ``inner_loop``, ``preview``, ``blind_budget``,
     ``nonblind_levels``, ``early_stop``, ``psf_path`` / ``save_psf_path``,
     ``stats_out``, ``compute_timer``, ``trace``, ``resize_backend`` ('jax',
     the on-device cubic, or 'scipy', the host spline) and ``dest_path``
@@ -286,12 +286,6 @@ def deblur_module(
             f"unknown precision {precision!r} (use 'exact', 'high', "
             "'mixed', 'fast', 'hybrid' or 'hybrid-high')"
         )
-    if inner_loop != "auto":
-        raise NotImplementedError(
-            f"inner_loop={inner_loop!r}: the TPU inner-loop variants are not "
-            "ported; the port picks its inner loop from the device and the "
-            "window size"
-        )
     # precision -> solver dtype, conv precision and guard
     # (ics_tpu/models/pipeline.py:357-411): 'high' forces the DoF guard on
     # every solve, blind ones included, as the JAX package does
@@ -300,7 +294,7 @@ def deblur_module(
         dtype={"mixed": "mixed", "fast": "bfloat16"}.get(precision, "float32"),
         early_stop=early_stop,
         conv_precision="high" if precision == "high" else "exact",
-        use_tv=use_tv, tv_norm=tv_norm,
+        use_tv=use_tv, tv_norm=tv_norm, inner_loop=inner_loop,
         dof_guard=True if precision == "high" else None,
     )
     # 'hybrid' / 'hybrid-high': the coarse non-blind levels of at least

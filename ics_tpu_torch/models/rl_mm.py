@@ -10,12 +10,12 @@ flag on the host once per outer iteration, where ``lax.while_loop`` tests
 it (ics_tpu/models/rl_mm.py:598-600).  Checking less often would change the
 outer count.
 
-Inner loop, per outer iteration: on CUDA, the one-launch kernel K2
-(ops/cuda_solver.py) where the JAX package ran its one-launch kernel
-(float32, unguarded, no TV, window inside its bound); else the op-level loop
-on the convolution dispatch (K1, K4s under ``conv_precision='high'``, K4 for
-bf16 operands), the K3 PSF gradient (float32 blind solves) and the K5 TV
-stencil (``use_tv``); on the CPU, the op-level loop on the plain twins.
+Inner loop, per outer iteration, as ``RLConfig.inner_loop`` routes it
+(``inner_loop_route``): the one-launch kernel K2 (ops/cuda_solver.py), or
+the op-level loop on the convolution dispatch (K1, K4s under
+``conv_precision='high'``, K4 for bf16 operands), the K3 PSF gradient
+(float32 blind solves) and the K5 TV stencil (``use_tv``).  On the CPU,
+both run on the plain twins.
 
 State inside the solver is planar (C, H, W) and contiguous; the public
 functions take and return the JAX package's (H, W, C) layout.
@@ -36,11 +36,13 @@ from ics_tpu_torch.ops.cuda_solver import fits, inner_loop_ops, inner_loop_plana
 from ics_tpu_torch.ops.reductions import whiteness_weights
 from ics_tpu_torch.ops.tv import tv_auto_planar
 
-__all__ = ["richardson_lucy_MM", "RLConfig", "RLResult", "print_solver_report"]
+__all__ = ["richardson_lucy_MM", "RLConfig", "RLResult", "inner_loop_route",
+           "print_solver_report"]
 
 _EPS_BLIND = 1e-2  # ref lib/deconvolution.pyx:435
 _EPS_NONBLIND = 1e-6  # ref lib/deconvolution.pyx:437
 _TV_NORMS = {"channel": False, "collab": "sup", "collab_l2": "l2"}
+_INNER_LOOPS = ("auto", "xla", "pallas", "pallas_unrolled")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +72,11 @@ class RLConfig:
     # blind PSF gradient: 'auto' and 'pallas' = K3 for float32 solves,
     # 'conv' = the FFT convolution (the only path in bf16)
     psf_grad: str = "auto"
+    # 'auto' | 'xla' | 'pallas' | 'pallas_unrolled' (inner_loop_route):
+    # 'xla' = the op loop; 'pallas' and 'pallas_unrolled' = K2 (one kernel,
+    # already unrolled on mk), with the JAX package's fallbacks to the op
+    # loop; 'auto' = K2 on CUDA where it takes the window, else the op loop
+    inner_loop: str = "auto"
     # Record per-outer-iteration (M_r, Hu, varu) in RLResult.trajectory.
     record_metrics: bool = False
     # DoF guard: dof = 1 where gradu + image == 0, and dof <= 1.  None =
@@ -140,6 +147,27 @@ def _hwc(a: torch.Tensor) -> torch.Tensor:
     return a.permute(1, 2, 0).contiguous()
 
 
+def inner_loop_route(inner_loop: str, *, device_type: str, fits: bool, use_tv: bool,
+                     guard: bool, compute: torch.dtype, mixed: bool) -> str:
+    """'kernel' (K2 on CUDA tensors, its plain twin ``inner_loop_plain`` on
+    CPU ones) or 'ops' (``inner_loop_ops``), as ics_tpu/models/rl_mm.py:333-365
+    routes ``inner_loop``: 'xla' is always the op loop; 'pallas' and
+    'pallas_unrolled' fall back to it under ``use_tv``, a window that does
+    not ``fits``, the DoF guard, bfloat16 or ``mixed``, where the JAX
+    package falls back; 'auto' takes K2 on CUDA only, as JAX takes its
+    kernel on the TPU only.  ``ICS_TPU_SOLVER_UNROLL`` is not read."""
+    if inner_loop not in _INNER_LOOPS:
+        raise ValueError(
+            f"unknown inner_loop {inner_loop!r} (use 'auto', 'xla', 'pallas' or "
+            "'pallas_unrolled')"
+        )
+    if inner_loop == "xla" or (inner_loop == "auto" and device_type != "cuda"):
+        return "ops"
+    if use_tv or not fits or guard or compute != torch.float32 or mixed:
+        return "ops"
+    return "kernel"
+
+
 def _solve(
     image,
     u,
@@ -162,6 +190,7 @@ def _solve(
     conv_method="auto",
     conv_precision="exact",
     psf_grad="auto",
+    inner_loop="auto",
     dtype="float32",
     dof_guard=None,
     early_stop=0.0,
@@ -207,8 +236,9 @@ def _solve(
     pad = (u_m - m) // 2
     weights = torch.as_tensor(weights, dtype=f32, device=dev)
 
-    if (dev.type == "cuda" and fits(u_m, u_n) and not use_tv and not guard
-            and compute == f32 and not mixed):
+    route = inner_loop_route(inner_loop, device_type=dev.type, fits=fits(u_m, u_n),
+                             use_tv=use_tv, guard=guard, compute=compute, mixed=mixed)
+    if route == "kernel":
         def inner(u, image, psf, **kw):
             return *inner_loop_planar(u, image, psf, **kw), image
     else:
@@ -345,7 +375,8 @@ def richardson_lucy_MM(
         correlation=bool(correlation), use_tv=cfg.use_tv,
         tv_method=cfg.tv_method, tv_norm=cfg.tv_norm,
         conv_method=cfg.conv_method, conv_precision=cfg.conv_precision,
-        psf_grad=cfg.psf_grad, dtype=cfg.dtype, dof_guard=cfg.dof_guard,
+        psf_grad=cfg.psf_grad, inner_loop=cfg.inner_loop, dtype=cfg.dtype,
+        dof_guard=cfg.dof_guard,
         early_stop=cfg.early_stop, early_stop_patience=cfg.early_stop_patience,
         record=cfg.record_metrics,
     )

@@ -19,7 +19,7 @@ from ics_tpu_torch.ops.conv import pad_symmetric
 
 __all__ = ["bilateral_planar", "bilateral_planar_plain", "MAX_RADIUS"]
 
-MAX_RADIUS = 32  # csrc/bilateral.cu kMaxRadius: the shared-memory tile and gs table
+MAX_RADIUS = 32  # csrc/bilateral.cu kMaxRadius: the shared-memory tile
 launches = 0  # kernel launches by bilateral_planar (the twin never counts)
 
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -31,6 +31,16 @@ def _constants(std_i: float, std_s: float) -> tuple[float, float, float, float]:
     f32 = lambda v: float(np.float32(v))
     return (f32(1.0 / (2.0 * std_i * std_i)), f32(_INV_SQRT_2PI / std_i),
             f32(1.0 / (2.0 * std_s * std_s)), f32(_INV_SQRT_2PI / std_s))
+
+
+def _kernel_constants(std_i: float, std_s: float) -> tuple[float, float]:
+    """(s, a) of csrc/bilateral.cu, whose weight is
+    exp2(-((nb*s - c*s)^2 + a*(dy^2 + dx^2))): the base-2 exponents
+    s = sqrt(inv2si2 * log2 e) and a = inv2ss2 * log2 e, in double and
+    rounded once.  norm_i * norm_s cancels in num / den."""
+    log2e = 1.0 / math.log(2.0)
+    return (float(np.float32(math.sqrt(log2e / (2.0 * std_i * std_i)))),
+            float(np.float32(log2e / (2.0 * std_s * std_s))))
 
 
 def _check(src: torch.Tensor, radius) -> int:
@@ -82,7 +92,7 @@ def bilateral_planar(src: torch.Tensor, radius: int, std_i: float,
     c, h, w = src.shape
     out = torch.empty_like(src)
     rc = _build.load_library().ics_bilateral(
-        src.data_ptr(), out.data_ptr(), c, h, w, radius, *_constants(std_i, std_s),
+        src.data_ptr(), out.data_ptr(), c, h, w, radius, *_kernel_constants(std_i, std_s),
         torch.cuda.current_stream(src.device).cuda_stream,
     )
     _build.check(rc, "ics_bilateral")

@@ -85,6 +85,16 @@ def test_cli_deblur_matches_jax(small_image, tmp_path, extra):
     assert ssim(got / 65535.0, want / 65535.0) >= 0.999
 
 
+@pytest.mark.parametrize("inner_loop", ["auto", "xla", "pallas", "pallas_unrolled"])
+def test_cli_deblur_inner_loop_matches_jax(small_image, tmp_path, inner_loop):
+    path, arr = small_image
+    got, want = _both(["deblur", path, "--blur-width", "3", "--iterations", "3",
+                       "--mask-size", "25", "--inner-loop", inner_loop], tmp_path,
+                      "in-deblurred.tif")
+    assert got.dtype == np.uint16 and got.shape == arr.shape
+    assert ssim(got / 65535.0, want / 65535.0) >= 0.999
+
+
 @pytest.mark.parametrize(
     "flags",
     [

@@ -87,6 +87,68 @@ def test_k3_kernel_matches_twin_on_gpu(mk):
     assert torch.equal(got, cuda_correlate.psf_gradient_planar(u, err))
 
 
+def _k3_case(dev, c, m, n, mk, nk):
+    """One K3 launch against its twin, and bitwise equal on a second run."""
+    gen = torch.Generator().manual_seed(m * 1000 + n + mk * 31 + nk)
+    u = torch.rand((c, m + mk - 1, n + nk - 1), generator=gen).to(dev)
+    err = torch.randn((c, m, n), generator=gen).to(dev)
+    before = cuda_correlate.launches
+    got = cuda_correlate.psf_gradient_planar(u, err)
+    assert cuda_correlate.launches == before + 1
+    ref = cuda_correlate.psf_gradient_plain(u, err)
+    assert got.shape == (c, mk, nk)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(got, cuda_correlate.psf_gradient_planar(u, err))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,m,n,mk,nk", [
+    (3, 363, 363, 7, 7), (3, 512, 512, 9, 9),  # the 24 MP path's op-loop windows
+    (3, 60, 70, 3, 31), (2, 45, 61, 31, 31), (3, 50, 70, 11, 5), (1, 40, 33, 5, 11),
+    (3, 9, 600, 5, 5), (1, 7, 530, 2, 9), (1, 5, 4, 40, 3),
+])
+def test_k3_sizes_on_gpu(c, m, n, mk, nk):
+    """The unrolled (7, 9) and run-time instances (NK up to 31, MK above a
+    chunk of 8 tap rows, non-square), two column strips (600, 530 columns),
+    aligned (uN % 4 == 0) and unaligned rows."""
+    _k3_case(_need_gpu(), c, m, n, mk, nk)
+
+
+@pytest.mark.cuda
+def test_k3_back_to_back_shapes_on_gpu():
+    """Two calls in a row at two shapes: the grid barrier leaves no state
+    behind; each call is one launch."""
+    dev = _need_gpu()
+    for c, m, n, mk, nk in [(3, 363, 363, 7, 7), (3, 512, 512, 9, 9), (3, 363, 363, 7, 7)]:
+        _k3_case(dev, c, m, n, mk, nk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inner_loop,kernel", [("xla", False), ("pallas", True),
+                                               ("pallas_unrolled", True), ("auto", True)])
+def test_inner_loop_routes_k2_or_the_op_loop_on_gpu(inner_loop, kernel):
+    """A blind solve on a window K2 takes: 'xla' runs the op loop (K3, no
+    K2), the other values K2 (no K3)."""
+    from ics_tpu_torch.models.rl_mm import RLConfig, richardson_lucy_MM
+
+    dev = _need_gpu()
+    mk, m = 5, 61
+    pad = mk // 2
+    gen = torch.Generator().manual_seed(5)
+    cells = torch.rand((m // 4 + 1, m // 4 + 1, 3), generator=gen) * 0.6 + 0.2
+    image = cells.repeat_interleave(4, 0).repeat_interleave(4, 1)[:m, :m].contiguous()
+    u = torch.nn.functional.pad(image.permute(2, 0, 1)[None], (pad,) * 4,
+                                mode="replicate")[0].permute(1, 2, 0).contiguous()
+    psf = torch.full((mk, mk, 3), 1.0 / mk**2)
+    k2_before, k3_before = cuda_solver.launches, cuda_correlate.launches
+    res = richardson_lucy_MM(image, u, psf, pad + 1, m - pad - 1, pad + 1, m - pad - 1,
+                             tau=1e9, iterations=3, lambd=1000.0, blind=True,
+                             config=RLConfig(inner_loop=inner_loop), device=dev)
+    assert res.iterations == 3 and bool(torch.isfinite(res.u).all())
+    assert (cuda_solver.launches > k2_before) == kernel
+    assert (cuda_correlate.launches > k3_before) != kernel
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("blind,corr", [(False, False), (True, False), (True, True)])
 def test_k2_kernel_matches_twin_on_gpu(blind, corr):
@@ -254,10 +316,12 @@ def test_k5_kernel_matches_twin_on_gpu(order, norm, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 77, 101), (3, 33, 40), (2, 5, 3)])
 @pytest.mark.parametrize("std_i,scale", [(0.1, 1.0), (5.0, 100.0)])
-@pytest.mark.parametrize("radius", [1, 2, 5, 16])
+@pytest.mark.parametrize("radius", [0, 1, 2, 5, 16, 32])
 def test_k6_kernel_matches_twin_on_gpu(radius, std_i, scale, shape):
-    """Tiles of 32x32 do not divide 77x101 or 33x40; a 5x3 plane is smaller
-    than 2r+1 for every radius above 1 (reflection with period 2n)."""
+    """Tiles of 32x64 do not divide 77x101 or 33x40; a 5x3 plane is smaller
+    than 2r+1 for every radius above 1 (reflection with period 2n); radius
+    0 is the centre alone, and 32's block needs over 48 KB of shared
+    memory."""
     dev = _need_gpu()
     src = torch.rand(shape, device=dev) * scale
     before = cuda_bilateral.launches

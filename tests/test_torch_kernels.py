@@ -283,3 +283,102 @@ def test_wrappers_reject_bad_input():
         cuda_tv.tv_planar(a.to("meta"), 1e-2)
     with pytest.raises(ValueError, match="unknown collab"):
         ttv.tv_op_auto(torch.zeros((5, 5, 3)), 1e-2, collab="l1")
+
+
+_K3_SHAPES = [(3, 512, 512), (3, 363, 363), (3, 60, 70), (1, 5, 4), (2, 9, 1100),
+              (3, 4000, 6000)]
+
+
+def _k3_walk(g, c, m, n, mk, nk):
+    """Each (channel, tap row, error row, error column) as often as the
+    kernel's units cover it, and each (channel, tap, slot) partial as often
+    as a unit writes it (csrc/psf_grad.cu's unit decomposition)."""
+    cover = np.zeros((c, mk, m, n), np.int32)
+    writes = np.zeros((c, mk, nk, g.n_bands * g.n_strips), np.int32)
+    n_chunks = -(-mk // g.tr)
+    assert g.n_units == c * n_chunks * g.n_bands * g.n_strips
+    for unit in range(g.n_units):
+        strip, rest = unit % g.n_strips, unit // g.n_strips
+        band, rest = rest % g.n_bands, rest // g.n_bands
+        chunk, ch = rest % n_chunks, rest // n_chunks
+        r0, t0, j0 = band * g.band_rows, chunk * g.tr, strip * g.ws
+        rows, trn = min(g.band_rows, m - r0), min(g.tr, mk - t0)
+        assert rows >= 1 and trn >= 1
+        # the stage holds rows + trn - 1 rows of the budget's
+        assert 4 * g.stage_w * (rows + trn - 1) <= g.smem
+        cols = min(g.ws, n - j0)
+        cover[ch, t0 : t0 + trn, r0 : r0 + rows, j0 : j0 + cols] += 1
+        writes[ch, t0 : t0 + trn, :, band * g.n_strips + strip] += 1
+    return cover, writes
+
+
+@pytest.mark.parametrize("mk", range(3, 32))
+def test_k3_geometry_covers_every_product_once(mk):
+    """For mk 3-31 (square, and against 1, 5 and 32 columns), on the
+    solver's windows and beyond: the units cover every (channel, tap row,
+    error pixel) once and write every partial once; the stage fits its
+    budget and reaches every column a thread's window loads; the grid fits
+    the card and has work for every block; the tap rows go one unit per
+    chunk of 8 (a warp each) where the sums do not fit in registers."""
+    for nk in sorted({mk, 1, 5, 32}):
+        inst, tb = cuda_correlate.instance(mk, nk)
+        assert (inst, tb) == ((mk, mk) if mk == nk and mk in (3, 5, 7, 9)
+                              else (0, 8 if nk <= 8 else 16 if nk <= 16 else 32))
+        for c, m, n in _K3_SHAPES:
+            for sms, per_sm in [(132, 1), (132, 2), (132, 3), (7, 1)]:
+                g = cuda_correlate.geometry(c, m, n, mk, nk, sms, per_sm)
+                assert g.tr == (mk if inst else cuda_correlate.CHUNK_ROWS)
+                assert g.smem == 4 * g.stage_w * (g.band_rows + g.tr - 1)
+                assert g.smem <= cuda_correlate.SMEM_BUDGET
+                assert 1 <= g.grid <= min(g.n_units, sms * per_sm)
+                assert g.ws % 4 == 0 and g.n_strips * g.ws >= n > (g.n_strips - 1) * g.ws
+                assert g.n_bands * g.band_rows >= m > (g.n_bands - 1) * g.band_rows
+                # the last item's window: 4 columns plus tb - 1 more, in
+                # 16-byte loads
+                assert g.ws - 4 + 4 * -(-(3 + tb) // 4) <= g.stage_w
+                if c * m * n <= 3 * 60 * 70 or (m == 512 and mk <= 9 and per_sm == 2):
+                    cover, writes = _k3_walk(g, c, m, n, mk, nk)
+                    assert (cover == 1).all() and (writes == 1).all()
+
+
+def test_k3_geometry_gives_the_card_a_unit_per_block_on_the_solver_windows():
+    # the 24 MP path's op-loop windows, at one and two blocks per SM
+    for m, mk in [(363, 7), (512, 9)]:
+        for per_sm in (1, 2):
+            g = cuda_correlate.geometry(3, m, m, mk, mk, 132, per_sm)
+            assert g.grid == g.n_units and 0.8 * 132 * per_sm <= g.grid <= 132 * per_sm
+            assert g.n_strips == 1 and g.inst == mk
+
+
+def test_k3_geometry_rejects_wide_taps():
+    with pytest.raises(ValueError, match="NK"):
+        cuda_correlate.geometry(3, 40, 40, 3, 33, 132, 1)
+
+
+@pytest.mark.parametrize("std_i,scale", [(0.1, 1.0), (5.0, 100.0)])
+@pytest.mark.parametrize("radius", [0, 2, 5])
+def test_k6_folded_constants_reproduce_the_twin(radius, std_i, scale):
+    """csrc/bilateral.cu's arithmetic in float32 torch: one base-2
+    exponential per weight of the host-folded (s, a), the norms dropped
+    (they cancel in num / den), rows of offsets in the twin's order."""
+    from ics_tpu_torch.ops import cuda_bilateral as cb
+    from ics_tpu_torch.ops.conv import pad_symmetric
+
+    src = torch.from_numpy((RNG.random((2, 23, 31)) * scale).astype(np.float32))
+    s, a = cb._kernel_constants(std_i, 5.0)
+    padded = pad_symmetric(src, (radius, radius), (radius, radius))
+    _, h, w = src.shape
+    cs = src * s
+    num = torch.zeros_like(src)
+    den = torch.zeros_like(src)
+    for dy in range(2 * radius + 1):
+        er = -(np.float32(a) * np.float32(dy - radius) ** 2)
+        for dx in range(2 * radius + 1):
+            ex = -(np.float32(a) * np.float32(dx - radius) ** 2)
+            nb = padded[:, dy : dy + h, dx : dx + w]
+            t = nb * s - cs
+            wgt = torch.exp2(-t * t + np.float32(er + ex))
+            num = num + nb * wgt
+            den = den + wgt
+    ref = cb.bilateral_planar_plain(src, radius, std_i, 5.0)
+    assert float((num / den - ref).abs().max()) <= 1e-5 * float(ref.abs().max())

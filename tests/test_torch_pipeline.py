@@ -138,7 +138,6 @@ def test_same_value_errors_as_jax(kw, match):
         dict(mesh=object()),
         dict(solver="pam"),
         dict(solver="pd"),
-        dict(inner_loop="pallas"),
     ],
 )
 def test_unported_options_raise(kw):
@@ -146,6 +145,43 @@ def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         _quiet(ics_tpu_torch.deblur_module, FIXTURE, "x", blur_width=3,
                mask_size=31, iterations=1, verbose=False, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("inner_loop", ["xla", "pallas", "pallas_unrolled"])
+def test_inner_loop_matches_jax(inner_loop):
+    """Each inner loop through the whole pipeline (JAX runs its Pallas inner
+    loop in interpret mode on the CPU, the port K2's plain twin)."""
+    pic, blur_width, kw = CASES["blocky"]
+    kw = dict(kw, verbose=False, inner_loop=inner_loop)
+    want_stats, got_stats = [], []
+    want = _quiet(ics_tpu.deblur_module, pic, "x", None, blur_width, stats_out=want_stats, **kw)
+    got = _quiet(ics_tpu_torch.deblur_module, pic, "x", None, blur_width,
+                 stats_out=got_stats, device="cpu", **kw)
+    assert got.dtype == np.uint16 and got.shape == want.shape
+    assert ssim(got / 65535.0, want / 65535.0) >= 0.999
+    assert [s["result"].iterations for s in got_stats] == [
+        s["result"].iterations for s in want_stats]
+
+
+def test_inner_loop_reaches_the_solver_config(monkeypatch):
+    import ics_tpu_torch.models.pipeline as tpipe
+
+    seen = []
+
+    def record(*a, _fn=tpipe.richardson_lucy_MM, **kw):
+        seen.append(kw["config"].inner_loop)
+        return _fn(*a, **kw)
+
+    monkeypatch.setattr(tpipe, "richardson_lucy_MM", record)
+    _quiet(ics_tpu_torch.deblur_module, FIXTURE, "x", None, 3, mask_size=31, iterations=1,
+           inner_loop="pallas_unrolled", verbose=False, device="cpu")
+    assert seen and set(seen) == {"pallas_unrolled"}
+
+
+def test_unknown_inner_loop_raises_like_jax():
+    kw = dict(mask_size=31, iterations=1, verbose=False, inner_loop="fused")
+    with pytest.raises(ValueError, match="inner_loop"):
+        _quiet(ics_tpu_torch.deblur_module, FIXTURE, "x", None, 3, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("preview", [False, True])

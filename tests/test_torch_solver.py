@@ -281,3 +281,84 @@ def test_bad_solver_options_raise(cfg, err, match):
     args, kw = _args(tau=0.0, iterations=1)
     with pytest.raises(err, match=match):
         trl.richardson_lucy_MM(*args, config=trl.RLConfig(**cfg), device="cpu", **kw)
+
+
+def _window(m, mk, seed):
+    """A smooth (m, m) image in [0.2, 0.8], its edge-padded window and a
+    flat PSF (tests/test_pallas.py:148-158)."""
+    rng = np.random.default_rng(seed)
+    pad = mk // 2
+    base = rng.random((m + 8, m + 8, 3)).astype(np.float32)
+    smooth = np.stack([sig.convolve(base[..., c], gaussian_kernel(7, 1.5), mode="valid")
+                       for c in range(3)], axis=-1)[:m, :m]
+    image = np.clip(smooth, 0.2, 0.8).astype(np.float32)
+    u = np.pad(image, ((pad, pad), (pad, pad), (0, 0)), mode="edge").astype(np.float32)
+    psf = np.dstack([uniform_kernel(mk)] * 3).astype(np.float32)
+    return image, u, psf, (pad + 1, m - pad - 1, pad + 1, m - pad - 1)
+
+
+@pytest.mark.parametrize("inner_loop", ["xla", "pallas", "pallas_unrolled"])
+@pytest.mark.parametrize("mk", [3, 7])
+@pytest.mark.parametrize("blind", [False, True])
+def test_inner_loop_matches_jax(inner_loop, mk, blind):
+    # about 31^2, 4 outers at a fixed count; JAX runs its Pallas inner loop
+    # in interpret mode on the CPU, the port K2's plain twin
+    # seeds whose blind M_r falls by >= 1.9e-5 relative each outer: no stop
+    image, u, psf, win = _window(31 - mk + 1 + mk // 2 * 2, mk, seed={3: 0, 7: 2}[mk])
+    kw = dict(tau=1e9, iterations=4, step_factor=1e-3, lambd=1000.0, blind=blind)
+    a = jrl.richardson_lucy_MM(image, u, psf, *win, config=jrl.RLConfig(inner_loop=inner_loop),
+                               **kw)
+    b = trl.richardson_lucy_MM(image, u, psf, *win, config=trl.RLConfig(inner_loop=inner_loop),
+                               device="cpu", **kw)
+    assert (b.iterations, b.converged) == (a.iterations, a.converged)
+    np.testing.assert_allclose(b.u.numpy(), np.asarray(a.u), atol=1e-5)
+    np.testing.assert_allclose(b.psf.numpy(), np.asarray(a.psf), atol=1e-5)
+
+
+_ROUTE = dict(device_type="cuda", fits=True, use_tv=False, guard=False,
+              compute=torch.float32, mixed=False)
+
+
+@pytest.mark.parametrize(
+    "inner_loop,change,want",
+    [
+        ("auto", {}, "kernel"),
+        ("pallas", {}, "kernel"),
+        ("pallas_unrolled", {}, "kernel"),
+        ("xla", {}, "ops"),
+        # the JAX package's fallbacks (ics_tpu/models/rl_mm.py:341-365)
+        ("pallas", dict(use_tv=True), "ops"),
+        ("pallas", dict(fits=False), "ops"),
+        ("pallas", dict(guard=True), "ops"),
+        ("pallas", dict(compute=torch.bfloat16), "ops"),
+        ("pallas", dict(mixed=True), "ops"),
+        ("pallas_unrolled", dict(guard=True), "ops"),
+        ("auto", dict(fits=False), "ops"),
+        ("auto", dict(use_tv=True), "ops"),
+        ("auto", dict(mixed=True), "ops"),
+        # the CPU: the kernel's plain twin where JAX runs its kernel in
+        # interpret mode; 'auto' takes the kernel on CUDA only
+        ("pallas", dict(device_type="cpu"), "kernel"),
+        ("pallas", dict(device_type="cpu", use_tv=True), "ops"),
+        ("auto", dict(device_type="cpu"), "ops"),
+        ("xla", dict(device_type="cpu"), "ops"),
+    ],
+)
+def test_inner_loop_route(inner_loop, change, want):
+    assert trl.inner_loop_route(inner_loop, **{**_ROUTE, **change}) == want
+
+
+def test_inner_loop_window_bound_is_the_jax_one():
+    from ics_tpu.ops.pallas_solver import fits_vmem
+
+    from ics_tpu_torch.ops.cuda_solver import fits
+
+    for side in (31, 262, 330, 331, 369, 520):
+        assert fits(side, side) == fits_vmem(side, side)
+
+
+def test_unknown_inner_loop_raises():
+    args, kw = _args(tau=0.0, iterations=1)
+    with pytest.raises(ValueError, match="inner_loop"):
+        trl.richardson_lucy_MM(*args, config=trl.RLConfig(inner_loop="fused"), device="cpu",
+                               **kw)
