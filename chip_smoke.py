@@ -20,26 +20,38 @@ Phases:
      from the shapes (K6's also counts the exponentials the function needs
      at the SFU's rate);
   3. the crop-scale pipeline on CUDA against the same pipeline on the CPU
-     (SSIM of the uint16 outputs), in exact, mixed, high, fast and use_tv
-     under each tv_norm;
+     (SSIM of the uint16 outputs), in exact, mixed, high, fast, use_tv
+     under each tv_norm, and with the TV-PAM and TV-PD solvers;
   4. the 1.9 MP reference case (bench.py's kwargs) on a synthetic scene,
      then again with ``inner_loop='xla'`` (the op loop with K3 where
-     'auto' runs K2: K3 > 0, K2 == 0, SSIM >= 0.999 against 'auto');
+     'auto' runs K2: K3 > 0, K2 == 0, SSIM >= 0.999 against 'auto'), then
+     with ``solver='pam'`` (K1, K3, K5 > 0) and ``solver='pd'`` (K3 > 0),
+     each with its launches and, informational, every solver's SSIM
+     against the sharp scene;
   5. the 24 MP case (bench.py's kwargs) in exact f32, the main path, then
-     in precision 'high', in 'mixed' and with use_tv: the launch counters
-     are zeroed just before each run; K1-K3 must be > 0 after the exact
-     run, K4s after 'high', K4 after 'mixed' and K5 after use_tv; then one
-     more exact, high and mixed run each under torch.profiler: each kernel's
-     summed device time and launches, K1, K4s and K4 split into full frames
-     and blind windows, and one psf_grad kernel per K3 call;
+     in precision 'high', in 'mixed', with use_tv, and with the 'pam' and
+     'pd' solvers: the launch counters are zeroed just before each run;
+     K1-K3 must be > 0 after the exact run, K4s after 'high', K4 after
+     'mixed', K5 after use_tv, K1, K3 and K5 after 'pam' and K3 after 'pd';
+     then SSIM of the 24 MP scene as CUDA tensors (the metrics' device
+     path in bands, K1) against its float64 host path; then one more
+     exact, 'high', 'mixed', 'pam' and 'pd' run each under torch.profiler:
+     each kernel's summed device time and launches, K1, K4s and K4 split
+     into full frames and blind windows (one profiled kernel per wrapper
+     launch), one psf_grad kernel per K3 call, the device time per outer
+     and cuFFT's share of the device time; then the time of one rfft2 +
+     irfft2 pair on PD's prime-length frame against a smooth one;
   6. the command line (``ics_tpu_torch.cli.main``) on the card, TIFF in and
      TIFF out: ``bilateral``, ``bilateral-lab``, ``usm`` and ``tv-denoise``
      with their defaults on the 24 MP frame (K6 > 0 after each bilateral
      run, K1 > 0 after usm, counters zeroed before each), ``deblur`` on the
-     1.9 MP frame (K1, K2 > 0; its TIFF bitwise equal to phase 4's array),
-     and ``bilateral`` / ``bilateral-lab`` at crop scale on CUDA against
-     the CPU, within one 16-bit code.
+     1.9 MP frame with each solver (K1, K2 > 0 for 'mm'; each TIFF bitwise
+     equal to phase 4's array of its solver), and ``bilateral`` /
+     ``bilateral-lab`` at crop scale on CUDA against the CPU, within one
+     16-bit code.
 
+SSIM comes from ``ics_tpu_torch.utils.metrics``; every pass/fail comparison
+computes it on the CPU, so the yardstick is independent of the kernels.
 Any failure exits non-zero before the last line, which is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
 numbers as JSON.  Imports neither JAX nor ``ics_tpu``; needs a CUDA GPU.
@@ -154,28 +166,6 @@ def make_scene(h: int, w: int, blur: int, seed: int) -> tuple[np.ndarray, np.nda
     blurred = convolve1d(convolve1d(sharp, k1, axis=0, mode="nearest"), k1, axis=1, mode="nearest")
     blurred += rng.normal(0.0, 0.002, blurred.shape).astype(np.float32)
     return sharp, (np.clip(blurred, 0.0, 1.0) * 255.0).round().astype(np.uint8)
-
-
-def ssim(a: np.ndarray, b: np.ndarray, data_range: float = 1.0, win: int = 7) -> float:
-    """Mean SSIM over channels (Wang et al. 2004, uniform 7x7 window, the
-    skimage defaults) in NumPy/SciPy."""
-    from scipy.ndimage import uniform_filter
-
-    a = np.asarray(a, np.float64)
-    b = np.asarray(b, np.float64)
-    c1, c2 = (0.01 * data_range) ** 2, (0.03 * data_range) ** 2
-    cov = win * win / (win * win - 1)
-    pad = win // 2
-    vals = []
-    for c in range(a.shape[-1]):
-        x, y = a[..., c], b[..., c]
-        ux, uy = uniform_filter(x, win), uniform_filter(y, win)
-        vx = cov * (uniform_filter(x * x, win) - ux * ux)
-        vy = cov * (uniform_filter(y * y, win) - uy * uy)
-        vxy = cov * (uniform_filter(x * y, win) - ux * uy)
-        s = ((2 * ux * uy + c1) * (2 * vxy + c2)) / ((ux**2 + uy**2 + c1) * (vx + vy + c2))
-        vals.append(float(np.mean(s[pad:-pad, pad:-pad])))
-    return float(np.mean(vals))
 
 
 # ---------------------------------------------------------------- phase 2
@@ -565,8 +555,18 @@ def _zero_counters() -> None:
     cuda_conv_mma.split_launches = cuda_conv_mma.bf16_launches = 0
 
 
-def phase_pipelines(torch, dev) -> dict:
-    # 3. crop scale, CUDA vs CPU, in every mode this port runs
+# the kernels each solver family's path must launch
+SOLVER_KERNELS = {"pam": ("K1", "K3", "K5"), "pd": ("K3",)}
+
+
+def phase_pipelines(torch, dev):
+    from ics_tpu_torch.utils import metrics
+
+    def ssim(a, b):
+        """On the CPU: a K1 fault cannot pass a comparison."""
+        return metrics.ssim(a, b, device="cpu")
+
+    # 3. crop scale, CUDA vs CPU, in every mode and solver this port runs
     crops = {5: make_scene(257, 263, 5, seed=3)[1], 9: make_scene(257, 263, 9, seed=9)[1]}
     for label, blur, extra, bound in [
         ("exact", 5, {}, 0.999),
@@ -576,6 +576,8 @@ def phase_pipelines(torch, dev) -> dict:
         ("use_tv collab", 5, dict(use_tv=True, tv_norm="collab"), 0.999),
         ("use_tv channel", 5, dict(use_tv=True, tv_norm="channel"), 0.999),
         ("use_tv collab_l2", 5, dict(use_tv=True, tv_norm="collab_l2"), 0.999),
+        ("solver=pam", 5, dict(solver="pam"), 0.999),
+        ("solver=pd", 5, dict(solver="pd"), 0.999),
     ]:
         kw = dict(blur_width=blur, mask_size=101, iterations=30, tolerance=0.1,
                   verbose=False, **extra)
@@ -594,8 +596,6 @@ def phase_pipelines(torch, dev) -> dict:
                 verbose=False, precision="exact")
     out19, wall, comp, levels = _deblur(torch, pic19, "cuda", **kw19)
     _report("1.9MP 1367x1394", wall, comp, levels)
-    print(f"1.9MP SSIM vs sharp: blurred {ssim(pic19 / 255.0, sharp19):.4f}, "
-          f"deblurred {ssim(out19 / 65535.0, sharp19):.4f} (informational)")
     # the same case with inner_loop='xla': the op loop, with K3, on the
     # blind windows that take K2 under 'auto'
     _zero_counters()
@@ -607,20 +607,34 @@ def phase_pipelines(torch, dev) -> dict:
     _require(counts["K3"] > 0 and counts["K2"] == 0,
              "inner_loop='xla' runs the op loop: K3 launched, K2 not")
     _require(s >= 0.999, "inner_loop='xla' SSIM >= 0.999 against 'auto'")
+    # the same case with the other solver families
+    outs19 = {"mm": out19}
+    for solver, names in SOLVER_KERNELS.items():
+        _zero_counters()
+        outs19[solver], wall, comp, levels = _deblur(torch, pic19, "cuda", solver=solver, **kw19)
+        counts = _counters()
+        _report(f"1.9MP 1367x1394 solver={solver}", wall, comp, levels)
+        print(f"1.9MP solver={solver} launches: {json.dumps(counts)}")
+        _require(all(counts[n] > 0 for n in names),
+                 f"{', '.join(names)} launched on the 1.9 MP solver={solver} path")
+    print(f"1.9MP SSIM vs sharp (informational): blurred {ssim(pic19 / 255.0, sharp19):.4f}, "
+          + ", ".join(f"{k} {ssim(v / 65535.0, sharp19):.4f}" for k, v in outs19.items()))
 
     # 5. the 24 MP case (bench.py:336-348): the main path in exact f32, then
-    # the paths of K4s, K4 and K5; the counters are zeroed just before each
-    # run and read just after it
-    _, pic24 = make_scene(4000, 6000, 9, seed=24)
+    # the paths of K4s, K4 and K5 and the other solver families; the
+    # counters are zeroed just before each run and read just after it
+    sharp24, pic24 = make_scene(4000, 6000, 9, seed=24)
     kw24 = dict(blur_width=9, mask=[2000, 3000], mask_size=511, display=False,
                 tolerance=0.1, quality="normal", preview=False, blur="static",
                 iterations=200, verbose=False)
-    launches = {}
+    launches, solver_launches = {}, {}
     for label, extra, names in [
         ("exact", dict(precision="exact"), ("K1", "K2", "K3")),
         ("high", dict(precision="high"), ("K4s",)),
         ("mixed", dict(precision="mixed"), ("K4",)),
         ("use_tv collab", dict(precision="exact", use_tv=True, tv_norm="collab"), ("K5",)),
+        *((f"solver={solver}", dict(solver=solver), names)
+          for solver, names in SOLVER_KERNELS.items()),
     ]:
         torch.cuda.reset_peak_memory_stats(dev)
         _zero_counters()
@@ -632,10 +646,40 @@ def phase_pipelines(torch, dev) -> dict:
         print(f"24MP {label} launches: {json.dumps(counts)}")
         _require(all(counts[n] > 0 for n in names),
                  f"{', '.join(names)} launched on the 24 MP {label} path")
-        launches.update({n: counts[n] for n in names})
-    for precision in ("exact", "high", "mixed"):
-        profile_run(torch, pic24, kw24, precision)
-    return launches, pic19, out19, pic24
+        if "solver" in extra:
+            solver_launches[extra["solver"]] = counts
+        else:
+            launches.update({n: counts[n] for n in names})
+    print(f"24MP solver launches: {json.dumps(solver_launches)}")
+    # the metrics' device path on the card, in bands, against the float64
+    # host path: float32 window means cancel in E[x^2] - E[x]^2 on this
+    # smooth scene, which moves the mean SSIM by about 1e-5 in any float32
+    # summation order
+    blurred24 = (pic24 / 255.0).astype(np.float32)
+    _zero_counters()
+    on_card = metrics.ssim(torch.from_numpy(sharp24).to(dev), torch.from_numpy(blurred24).to(dev))
+    k1 = _counters()["K1"]
+    on_host = ssim(sharp24, blurred24)
+    print(f"24MP SSIM sharp vs blurred: CUDA tensors {on_card:.9f} ({k1} K1 launches), "
+          f"host path {on_host:.9f}, difference {on_card - on_host:.3e}")
+    _require(k1 > 0 and abs(on_card - on_host) <= 2e-5,
+             "24 MP SSIM of CUDA tensors stays on the card (K1) within 2e-5 of the host path")
+    for extra in (dict(precision="exact"), dict(precision="high"), dict(precision="mixed"),
+                  dict(solver="pam"), dict(solver="pd")):
+        profile_run(torch, pic24, kw24, extra)
+    prime_fft_times(torch, dev)
+    return launches, pic19, outs19, pic24
+
+
+def prime_fft_times(torch, dev) -> None:
+    """Event time of one rfft2 + irfft2 pair on PD's 24 MP final-level frame
+    (3x4003x6003; 4003 is prime) against the smooth 3x4000x6000."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    for shape in ((3, 4003, 6003), (3, 4000, 6000)):
+        x = torch.rand(shape, generator=g, device=dev)
+        fft_ms = _median_ms(torch, lambda: torch.fft.irfft2(torch.fft.rfft2(x), s=shape[1:]), 5)
+        print(f"cuFFT rfft2 + irfft2 f32 {'x'.join(map(str, shape))}: {fft_ms:.3f} ms")
+        del x
 
 
 _KERNEL_NAMES = [("conv2d_kernel", "K1"), ("inner_loop_kernel", "K2"), ("psf_grad", "K3"),
@@ -648,11 +692,12 @@ _BY_SHAPE = {"K1": ("cuda_conv", "conv_planar"), "K4s": ("cuda_conv_mma", "conv_
              "K4": ("cuda_conv_mma", "conv_bf16")}
 
 
-def profile_run(torch, pic24, kw24, precision: str) -> None:
-    """One more 24 MP run in ``precision`` under torch.profiler: each
-    kernel's summed device time and launches, K1, K4s and K4 split by shape
-    class (a full frame, or a blind window of at most 600x600: the op
-    loop's 369^2 and 520^2 levels)."""
+def profile_run(torch, pic24, kw24, extra: dict) -> None:
+    """One more 24 MP run with ``extra`` (a precision or a solver) under
+    torch.profiler: each kernel's summed device time and launches, K1, K4s
+    and K4 split by shape class (a full frame, or a blind window of at most
+    600x600: the op loop's 369^2 and 520^2 levels), and cuFFT's share."""
+    label = " ".join(f"{v}" if k == "precision" else f"{k}={v}" for k, v in extra.items())
     from torch.profiler import ProfilerActivity, profile
 
     from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma
@@ -675,7 +720,7 @@ def profile_run(torch, pic24, kw24, precision: str) -> None:
         _zero_counters()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            _deblur(torch, pic24, "cuda", **kw24, precision=precision)
+            _, _, _, levels = _deblur(torch, pic24, "cuda", **kw24, **extra)
             wall = time.perf_counter() - t0
         counts = _counters()
     finally:
@@ -701,14 +746,20 @@ def profile_run(torch, pic24, kw24, precision: str) -> None:
         sums[kid] = (n + 1, t + us)
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     _require(all(seen[k] == len(classes[k]) for k in seen),
-             f"profiler {precision}: one K1/K4s/K4 kernel per wrapper launch")
+             f"profiler {label}: one K1/K4s/K4 kernel per wrapper launch")
     k3_kernels = sums.get("K3", (0, 0.0))[0]
-    print(f"profile 24MP {precision}: {k3_kernels} psf_grad kernels, K3 launches {counts['K3']}")
-    _require(k3_kernels == counts["K3"], f"profiler {precision}: one psf_grad kernel per K3 call")
-    print(f"profile 24MP {precision}: wall {wall:.3f} s (profiled), device busy {busy:.3f} s, "
-          f"busy share {busy / wall:.3f}")
+    print(f"profile 24MP {label}: {k3_kernels} psf_grad kernels, K3 launches {counts['K3']}")
+    _require(k3_kernels == counts["K3"], f"profiler {label}: one psf_grad kernel per K3 call")
+    outers = sum(n for _, _, n, _ in levels)
+    print(f"profile 24MP {label}: wall {wall:.3f} s (profiled), device busy {busy:.3f} s, "
+          f"busy share {busy / wall:.3f}, {outers} outers, "
+          f"{busy / outers * 1e3:.3f} ms device time per outer (all levels)")
     report = {k: {"launches": n, "device_s": t / 1e6} for k, (n, t) in sorted(sums.items())}
-    print(f"profile 24MP {precision} kernels: " + json.dumps(report))
+    print(f"profile 24MP {label} kernels: " + json.dumps(report))
+    fft = [(n, t) for name, (n, t) in other.items() if "fft" in name.lower()]
+    fft_s = sum(t for _, t in fft) / 1e6
+    print(f"profile 24MP {label}: cuFFT {fft_s:.4f} s in {sum(n for n, _ in fft)} kernels, "
+          f"{fft_s / busy:.3f} of the device time")
     top = sorted(other.items(), key=lambda kv: -kv[1][1])[:8]
     for name, (n, t) in top:
         print(f"  other: {t / 1e6:.4f} s, {n} launches, {name[:100]}")
@@ -730,7 +781,7 @@ def _cli(argv, device="cuda") -> tuple[float, dict]:
     return wall, _counters()
 
 
-def phase_cli(pic19, out19, pic24) -> dict:
+def phase_cli(pic19, outs19, pic24) -> dict:
     import tempfile
 
     from ics_tpu_torch.utils.io import imread, imsave
@@ -754,16 +805,21 @@ def phase_cli(pic19, out19, pic24) -> dict:
             if cmd == "bilateral":
                 launches["K6"] = counts["K6"]
 
-        # deblur on the 1.9 MP scene, as an 8-bit TIFF, with phase 4's flags
+        # deblur on the 1.9 MP scene, as an 8-bit TIFF, with phase 4's flags,
+        # once per solver
         src = os.path.join(tmp, "scene19.tif")
         imsave(src, pic19)
-        wall, counts = _cli(["deblur", src, out_dir, "--blur-width", "7", "--mask", "584",
-                             "795", "--tolerance", "0.1"])
-        got = imread(os.path.join(out_dir, "scene19-deblurred.tif"))
-        print(f"CLI deblur 1.9MP 1367x1394: wall {wall:.3f} s, launches {json.dumps(counts)}")
-        _require(counts["K1"] > 0 and counts["K2"] > 0, "K1, K2 launched by the CLI deblur")
-        _require(got.dtype == np.uint16 and np.array_equal(got, out19),
-                 "CLI deblur TIFF bitwise equal to phase 4's array")
+        for solver, out19 in outs19.items():
+            wall, counts = _cli(["deblur", src, out_dir, "--blur-width", "7", "--mask", "584",
+                                 "795", "--tolerance", "0.1", "--solver", solver])
+            got = imread(os.path.join(out_dir, "scene19-deblurred.tif"))
+            print(f"CLI deblur --solver {solver} 1.9MP 1367x1394: wall {wall:.3f} s, "
+                  f"launches {json.dumps(counts)}")
+            names = SOLVER_KERNELS.get(solver, ("K1", "K2"))
+            _require(all(counts[n] > 0 for n in names),
+                     f"{', '.join(names)} launched by the CLI deblur --solver {solver}")
+            _require(got.dtype == np.uint16 and np.array_equal(got, out19),
+                     f"CLI deblur --solver {solver} TIFF bitwise equal to phase 4's array")
 
         # crop scale: the CLI on CUDA against the CLI on the CPU
         crop = os.path.join(tmp, "crop.tif")
@@ -812,8 +868,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
     rows = phase_kernels(torch, dev, rng)
-    launches, pic19, out19, pic24 = phase_pipelines(torch, dev)
-    launches.update(phase_cli(pic19, out19, pic24))
+    launches, pic19, outs19, pic24 = phase_pipelines(torch, dev)
+    launches.update(phase_cli(pic19, outs19, pic24))
 
     sources = {
         "K1": ("ics_tpu_torch/csrc/conv2d.cu", "ics_tpu/ops/pallas_conv.py:39"),

@@ -9,8 +9,7 @@ same subcommands, flags and defaults; ref deconvolve.py:370-423).
 
 Everything runs on the GPU; ``main(argv, device="cpu")`` runs it on the CPU
 (there is no flag for it).  Not ported yet, and exiting non-zero with their
-ROADMAP item: ``deblur-batch`` and ``--shard`` (item 11), ``--solver
-pam|pd`` (item 9).
+ROADMAP item: ``deblur-batch`` and ``--shard`` (item 11).
 """
 
 from __future__ import annotations
@@ -31,11 +30,6 @@ def _cmd_deblur(args, device) -> int:
 
     if args.blur_width is None and args.psf is None:
         raise SystemExit("deblur: either --blur-width or --psf is required")
-    if args.solver != "mm":
-        raise SystemExit(
-            f"deblur: --solver {args.solver} is not ported to ics_tpu_torch yet "
-            "(ROADMAP item 9, solver variants)"
-        )
     if args.shard:
         raise SystemExit(f"deblur: --shard is not ported to ics_tpu_torch yet ({_BATCHING})")
 
@@ -199,7 +193,8 @@ def main(argv=None, device="cuda") -> int:
     p.add_argument("--preview", action="store_true")
     p.add_argument("--iterations", type=int, default=200)
     p.add_argument("--solver", default="mm", choices=["mm", "pam", "pd"],
-                   help="only 'mm' is ported (pam and pd: ROADMAP item 9)")
+                   help="mm=TV-MM (the reference's solver), pam=TV-PAM, "
+                        "pd=TV-PD (Chambolle-Pock)")
     p.add_argument("--nonblind-levels", default="all", choices=["all", "final"],
                    help="run the non-blind pass at every pyramid scale "
                         "(reference parity) or only at full resolution")

@@ -26,6 +26,8 @@ from ics_tpu_torch.models.checkpoint import (
     save_checkpoint,
 )
 from ics_tpu_torch.models.rl_mm import RLConfig, richardson_lucy_MM
+from ics_tpu_torch.models.rl_pam import richardson_lucy_PAM
+from ics_tpu_torch.models.rl_pd import richardson_lucy_PD
 from ics_tpu_torch.ops.psf import normalize_kernel
 from ics_tpu_torch.ops.windows import uniform_kernel
 from ics_tpu_torch.utils.io import save
@@ -105,11 +107,16 @@ def _write_back(deblured_image, res, temp_top, temp_bottom, temp_left,
 
     The reference solver mutates the caller's array through a view, so the
     whole padded window, halo ring included, is written back (ref
-    deconvolve.py:277-288)."""
-    deblured_image[
-        temp_top - pad - 1 : temp_bottom + pad + 1,
-        temp_left - pad - 1 : temp_right + pad + 1,
-    ] = res.u_full
+    deconvolve.py:277-288) by the solvers that return ``u_full`` (MM); the
+    others (PAM, PD) write their inner box, as ics_tpu/models/pipeline.py:
+    89-107 falls back."""
+    if res.u_full is not None:
+        deblured_image[
+            temp_top - pad - 1 : temp_bottom + pad + 1,
+            temp_left - pad - 1 : temp_right + pad + 1,
+        ] = res.u_full
+    else:
+        deblured_image[temp_top - 1 : temp_bottom + 1, temp_left - 1 : temp_right + 1] = res.u
     return deblured_image
 
 
@@ -170,9 +177,13 @@ def deblur_module(
     ``stats_out``, ``compute_timer``, ``trace``, ``resize_backend`` ('jax',
     the on-device cubic, or 'scipy', the host spline) and ``dest_path``
     (a 16-bit TIFF ``<filename>.tif``, ``-preview`` appended with
-    ``preview``).  The unported options (``display``, ``mesh``, the
-    ``pam``/``pd`` solvers) raise ``NotImplementedError`` naming their
-    ROADMAP item.
+    ``preview``).  ``solver`` 'pam' (TV-PAM) and 'pd' (TV-PD) run the same
+    pyramid, routed as ics_tpu/models/pipeline.py:412-421 routes them:
+    ``config`` passes through as their ``PAMConfig`` / ``PDConfig``;
+    ``precision``, ``use_tv``, ``tv_norm``, ``inner_loop``, ``early_stop``
+    and ``verbose``'s solver report are the 'mm' solver's only.  The
+    unported options (``display``, ``mesh``) raise ``NotImplementedError``
+    naming their ROADMAP item.
 
     ``device``: 'cuda' (the default; raises without a GPU) or 'cpu'.
     ``compute_timer`` times upload-complete to result-ready on the device,
@@ -240,8 +251,6 @@ def deblur_module(
         raise ValueError("nonblind_levels must be 'all' or 'final'")
     if blind_budget is not None and blind_budget < 1:
         raise ValueError("blind_budget must be a positive iteration count")
-    if solver != "mm":
-        raise _not_ported(f"solver={solver!r}", "Solver variants")
 
     M, N = pic.shape[0], pic.shape[1]
 
@@ -286,29 +295,37 @@ def deblur_module(
             f"unknown precision {precision!r} (use 'exact', 'high', "
             "'mixed', 'fast', 'hybrid' or 'hybrid-high')"
         )
-    # precision -> solver dtype, conv precision and guard
-    # (ics_tpu/models/pipeline.py:357-411): 'high' forces the DoF guard on
-    # every solve, blind ones included, as the JAX package does
-    solver_cfg = config or RLConfig(
-        p=p, norm=norm, order=order, priority=priority, refocus=refocus,
-        dtype={"mixed": "mixed", "fast": "bfloat16"}.get(precision, "float32"),
-        early_stop=early_stop,
-        conv_precision="high" if precision == "high" else "exact",
-        use_tv=use_tv, tv_norm=tv_norm, inner_loop=inner_loop,
-        dof_guard=True if precision == "high" else None,
-    )
-    # 'hybrid' / 'hybrid-high': the coarse non-blind levels of at least
-    # _HYBRID_MIN_PIXELS run mixed, or f32 with K4s convs and the guard
     solver_cfg_coarse = None
-    if config is None and precision in ("hybrid", "hybrid-high"):
-        solver_cfg_coarse = dataclasses.replace(
-            solver_cfg,
-            **({"dtype": "mixed"} if precision == "hybrid"
-               else {"conv_precision": "high", "dof_guard": True}),
+    if solver == "mm":
+        # precision -> solver dtype, conv precision and guard
+        # (ics_tpu/models/pipeline.py:357-411): 'high' forces the DoF guard
+        # on every solve, blind ones included, as the JAX package does
+        solver_cfg = config or RLConfig(
+            p=p, norm=norm, order=order, priority=priority, refocus=refocus,
+            dtype={"mixed": "mixed", "fast": "bfloat16"}.get(precision, "float32"),
+            early_stop=early_stop,
+            conv_precision="high" if precision == "high" else "exact",
+            use_tv=use_tv, tv_norm=tv_norm, inner_loop=inner_loop,
+            dof_guard=True if precision == "high" else None,
         )
-    solve = lambda *a, cfg=solver_cfg, **kw: richardson_lucy_MM(
-        *a, config=cfg, verbose=verbose, device=dev, **kw
-    )
+        # 'hybrid' / 'hybrid-high': the coarse non-blind levels of at least
+        # _HYBRID_MIN_PIXELS run mixed, or f32 with K4s convs and the guard
+        if config is None and precision in ("hybrid", "hybrid-high"):
+            solver_cfg_coarse = dataclasses.replace(
+                solver_cfg,
+                **({"dtype": "mixed"} if precision == "hybrid"
+                   else {"conv_precision": "high", "dof_guard": True}),
+            )
+        solve = lambda *a, cfg=solver_cfg, **kw: richardson_lucy_MM(
+            *a, config=cfg, verbose=verbose, device=dev, **kw
+        )
+    else:
+        # 'pam' / 'pd': ``config`` is their PAMConfig / PDConfig (None for
+        # the defaults), the same on every level
+        solver_cfg = config
+        solve = lambda *a, cfg=solver_cfg, **kw: (
+            richardson_lucy_PAM if solver == "pam" else richardson_lucy_PD
+        )(*a, config=cfg, device=dev, **kw)
 
     deblured_image = pic
     cases = ["non-blind"] if loaded_psf is not None else ["blind", "non-blind"]

@@ -147,6 +147,43 @@ def _hwc(a: torch.Tensor) -> torch.Tensor:
     return a.permute(1, 2, 0).contiguous()
 
 
+def whiteness_stop(error, it, m_r, m_r_prev, *, window, weights, blind, tau):
+    """One outer iteration's residual-whiteness test (Almeida & Figueiredo;
+    ref lib/deconvolution.pyx:620-654), shared by the MM, PAM and PD solvers.
+
+    ``error`` is the planar residual; ``window`` is (top, bottom, left,
+    right).  Returns (M_r, the M_r it was compared with, hit), all still on
+    the device: the caller makes the one host read of its outer iteration.
+    """
+    top, bottom, left, right = window
+    patch = error[:, top:bottom, left:right].float()
+    test = (patch - torch.mean(patch)) / torch.std(patch, correction=0)
+    test = test / torch.amax(torch.abs(test))
+    ac = _autocorrelate_planar(test)
+    m_r_new = torch.mean(ac * ac * weights)
+    m_r_prev_new = m_r if it > 0 else m_r_prev
+    if blind:
+        hit = m_r_new > m_r_prev_new  # ref :646
+    else:
+        hit = (m_r_new - m_r_prev_new) / (m_r_new + m_r_prev_new) > tau
+    return m_r_new, m_r_prev_new, hit
+
+
+def final_stats(it, stop, m_r, error, u, *, window, pad):
+    """``[iterations, converged, M_r, Hu, varu]`` over the mask window (ref
+    :600-601): Hu over the residual's window, varu over ``u``'s, inset by
+    ``pad``.  ``error`` and ``u`` are planar float32."""
+    top, bottom, left, right = window
+    f32, dev = torch.float32, u.device
+    varu = torch.std(u[:, top + pad : bottom - pad, left + pad : right - pad], correction=0) ** 2
+    hu = torch.sum(error[:, top:bottom, left:right] ** 2) / ((bottom - top) * (right - left) * 3)
+    return torch.stack([
+        torch.tensor(float(it), dtype=f32, device=dev),
+        torch.tensor(float(stop), dtype=f32, device=dev),
+        m_r.to(f32), hu, varu,
+    ])
+
+
 def inner_loop_route(inner_loop: str, *, device_type: str, fits: bool, use_tv: bool,
                      guard: bool, compute: torch.dtype, mixed: bool) -> str:
     """'kernel' (K2 on CUDA tensors, its plain twin ``inner_loop_plain`` on
@@ -260,7 +297,6 @@ def _solve(
             )
 
     zero = torch.zeros((), dtype=f32, device=dev)
-    tau_t = torch.tensor(tau, dtype=f32, device=dev)
     m_r = m_r_prev = zero
     m_r_best = torch.tensor(float("inf"), dtype=f32, device=dev)
     since_best = 0
@@ -268,6 +304,7 @@ def _solve(
     it, stop = 0, False
     hist = {"M_r": [], "Hu": [], "varu": []}
     win = (bottom - top) * (right - left) * 3
+    window = (top, bottom, left, right)
 
     while it < iterations and not stop:
         u, psf, error, image = inner(
@@ -276,17 +313,9 @@ def _solve(
         )
 
         if use_stopping:
-            # residual whiteness (Almeida & Figueiredo; ref :620-654)
-            patch = error[:, top:bottom, left:right].float()
-            test = (patch - torch.mean(patch)) / torch.std(patch, correction=0)
-            test = test / torch.amax(torch.abs(test))
-            ac = _autocorrelate_planar(test)
-            m_r_new = torch.mean(ac * ac * weights)
-            m_r_prev_new = m_r if it > 0 else m_r_prev
-            if blind:
-                hit = m_r_new > m_r_prev_new  # ref :646
-            else:
-                hit = (m_r_new - m_r_prev_new) / (m_r_new + m_r_prev_new) > tau_t
+            m_r_new, m_r_prev_new, hit = whiteness_stop(
+                error, it, m_r, m_r_prev, window=window, weights=weights, blind=blind,
+                tau=tau)
             flags = [hit]
             if early_stop > 0.0 and not blind:
                 # whiteness-plateau stop (RLConfig.early_stop); the anchor
@@ -310,17 +339,8 @@ def _solve(
             hist["varu"].append(torch.std(u_win, correction=0) ** 2)
         it += 1
 
-    # final stats over the mask window (ref :600-601)
     u, psf, image, error = u.float(), psf.float(), image.float(), error.float()
-    u_win = u[:, top + pad : bottom - pad, left + pad : right - pad]
-    varu = torch.std(u_win, correction=0) ** 2
-    err_win = error[:, top:bottom, left:right]
-    hu = torch.sum(err_win**2) / win
-    stats = torch.stack([
-        torch.tensor(float(it), dtype=f32, device=dev),
-        torch.tensor(float(stop), dtype=f32, device=dev),
-        m_r.to(f32), hu, varu,
-    ])
+    stats = final_stats(it, stop, m_r, error, u, window=window, pad=pad)
     u_out = _hwc(u[:, pad : pad + m, pad : pad + n])
     hist = {k: torch.stack(v) if v else torch.zeros(0, dtype=f32, device=dev)
             for k, v in hist.items()}

@@ -21,6 +21,7 @@ import torch
 from ics_tpu_torch import _build
 from ics_tpu_torch.ops.cuda_conv import conv_planar_plain
 from ics_tpu_torch.ops.cuda_correlate import psf_gradient_plain
+from ics_tpu_torch.ops.psf import project_planar
 
 __all__ = ["fits", "inner_loop_ops", "inner_loop_plain", "inner_loop_planar"]
 
@@ -55,7 +56,7 @@ def inner_loop_ops(u, image, psf, *, step_factor, lambd, blind, correlation,
     the last residual (post-update when blind), the one the whiteness
     metric reads.
     """
-    c, u_m, u_n = u.shape
+    _, u_m, u_n = u.shape
     _, m, n = image.shape
     mk = psf.shape[1]
     pad = (u_m - m) // 2
@@ -131,11 +132,7 @@ def inner_loop_ops(u, image, psf, *, step_factor, lambd, blind, correlation,
             dtpsf = sf / mk * (torch.amax(psf) + 1.0 / (u_m * u_n * 3)) / (
                 torch.amax(torch.abs(gradk)) + 1e-15
             )
-            psf = psf - dtpsf * gradk
-            if correlation:
-                psf = torch.mean(psf, dim=0, keepdim=True).expand(c, mk, mk)
-            psf = torch.clamp(psf, min=0.0)
-            psf = (psf / torch.sum(psf, dim=(1, 2), keepdim=True)).contiguous()
+            psf = project_planar(psf - dtpsf * gradk, correlation)
             psf_rot = torch.flip(psf, dims=(1, 2)).contiguous()
         if mixed:
             delta = u - u_start

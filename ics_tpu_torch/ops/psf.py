@@ -2,14 +2,15 @@
 
 ``normalize_kernel`` clamps negative taps to zero and makes each channel sum
 to 1 (ref lib/deconvolution.pyx:47-75); ``rotate_180`` flips both spatial
-axes.  Both take the JAX package's (MK, MK) or (MK, MK, C) layout.
+axes.  Both take the JAX package's (MK, MK) or (MK, MK, C) layout;
+``project_planar`` is the solvers' PSF projection on planar (C, MK, MK).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["normalize_kernel", "rotate_180"]
+__all__ = ["normalize_kernel", "rotate_180", "project_planar"]
 
 
 def normalize_kernel(kern: torch.Tensor, mk: int | None = None) -> torch.Tensor:
@@ -27,3 +28,13 @@ def normalize_kernel(kern: torch.Tensor, mk: int | None = None) -> torch.Tensor:
 def rotate_180(array: torch.Tensor) -> torch.Tensor:
     """Rotate (H, W) or (H, W, C) by 180° about the spatial center."""
     return torch.flip(array, dims=(0, 1))
+
+
+def project_planar(psf: torch.Tensor, correlation: bool = False) -> torch.Tensor:
+    """A blind step's planar (C, MK, MK) PSF onto the simplex: the channel
+    mean first when ``correlation`` (one PSF for every channel), then
+    ``normalize_kernel``'s clamp and per-channel rescale; contiguous."""
+    if correlation:
+        psf = torch.mean(psf, dim=0, keepdim=True).expand_as(psf)
+    psf = torch.clamp(psf, min=0.0)
+    return (psf / torch.sum(psf, dim=(1, 2), keepdim=True)).contiguous()

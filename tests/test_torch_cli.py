@@ -95,9 +95,26 @@ def test_cli_deblur_inner_loop_matches_jax(small_image, tmp_path, inner_loop):
     assert ssim(got / 65535.0, want / 65535.0) >= 0.999
 
 
+@pytest.mark.parametrize("extra", [[], ["--blur", "motion"], ["--preview"]])
+@pytest.mark.parametrize("solver", ["pam", "pd"])
+def test_cli_deblur_solver_matches_jax(small_image, tmp_path, solver, extra):
+    """``--solver pam|pd``: every 16-bit code within one of ics_tpu's (both
+    run the same outer counts on this fixture)."""
+    path, arr = small_image
+    name = "in-deblurred-preview.tif" if extra == ["--preview"] else "in-deblurred.tif"
+    got, want = _both(["deblur", path, "--blur-width", "3", "--iterations", "4",
+                       "--mask-size", "25", "--solver", solver, *extra], tmp_path, name)
+    assert got.dtype == np.uint16 and got.shape == want.shape
+    if extra != ["--preview"]:
+        assert got.shape == arr.shape
+    assert np.abs(got.astype(np.int32) - want).max() <= 1
+
+
 @pytest.mark.parametrize(
     "flags",
     [
+        ["--blur-width", "5", "--solver", "pam", "--precision", "mixed"],
+        ["--blur-width", "3", "--solver", "pd", "--use-tv"],
         ["--blur-width", "5", "--profile", "fast"],
         # the profile overrides an explicit --precision exact, as in ics_tpu
         ["--blur-width", "3", "--profile", "fast", "--precision", "exact", "--blind-budget", "4"],
@@ -130,8 +147,6 @@ def test_cli_deblur_passes_the_same_kwargs_as_jax(small_image, tmp_path, monkeyp
     [
         (["deblur-batch", "f*.tif", "out", "--psf", "p.npz"], "ROADMAP item 11"),
         (["deblur", "{path}", "out", "--blur-width", "3", "--shard", "2"], "ROADMAP item 11"),
-        (["deblur", "{path}", "out", "--blur-width", "3", "--solver", "pam"], "ROADMAP item 9"),
-        (["deblur", "{path}", "out", "--blur-width", "3", "--solver", "pd"], "ROADMAP item 9"),
     ],
 )
 def test_unported_cli_options_exit_with_their_roadmap_item(small_image, argv, item):

@@ -341,3 +341,92 @@ def test_k6_radius_limit_raises_on_gpu():
     with pytest.raises(ValueError, match=str(cuda_bilateral.MAX_RADIUS)):
         cuda_bilateral.bilateral_planar(src, cuda_bilateral.MAX_RADIUS + 1, 0.1, 5.0)
     assert cuda_bilateral.launches == before
+
+
+def _solver_problem(m=61, mk=5):
+    """A blocky window and its edge-padded start, (H, W, C) on the CPU."""
+    pad = mk // 2
+    gen = torch.Generator().manual_seed(m + mk)
+    cells = torch.rand((m // 4 + 1, m // 4 + 1, 3), generator=gen) * 0.6 + 0.2
+    image = cells.repeat_interleave(4, 0).repeat_interleave(4, 1)[:m, :m].contiguous()
+    u = torch.nn.functional.pad(image.permute(2, 0, 1)[None], (pad,) * 4,
+                                mode="replicate")[0].permute(1, 2, 0).contiguous()
+    psf = torch.full((mk, mk, 3), 1.0 / mk**2)
+    return image, u, psf, (pad + 1, m - pad - 1, pad + 1, m - pad - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["pam", "pd"])
+@pytest.mark.parametrize("blind,corr", [(False, False), (True, False), (True, True)])
+def test_pam_pd_on_gpu_match_the_cpu(solver, blind, corr):
+    """TV-PAM (K1, K3, K5) and TV-PD (cuFFT, K3) on CUDA against the same
+    solve on the CPU (the plain twins), at a fixed outer count."""
+    from ics_tpu_torch.models.rl_pam import richardson_lucy_PAM
+    from ics_tpu_torch.models.rl_pd import richardson_lucy_PD
+
+    dev = _need_gpu()
+    fn = richardson_lucy_PAM if solver == "pam" else richardson_lucy_PD
+    image, u, psf, win = _solver_problem()
+    kw = dict(tau=1e9, iterations=3, blind=blind, correlation=corr)
+    counts = (cuda_conv.launches, cuda_correlate.launches, cuda_tv.launches)
+    got = fn(image, u, psf, *win, device=dev, **kw)
+    want = fn(image, u, psf, *win, device="cpu", **kw)
+    launched = [a > b for a, b in zip((cuda_conv.launches, cuda_correlate.launches,
+                                       cuda_tv.launches), counts)]
+    assert launched == [solver == "pam", blind, solver == "pam"]
+    assert got.iterations == want.iterations and got.u_full is None
+    assert float((got.u.cpu() - want.u).abs().max()) <= 1e-4
+    assert float((got.psf.cpu() - want.psf).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,mk", [(183, 3), (257, 5), (363, 7), (513, 9)])
+@pytest.mark.parametrize("wrap", [False, True])
+def test_k3_at_pam_and_pd_window_shapes_on_gpu(m, mk, wrap):
+    """K3 at the blind windows of the 24 MP pyramid: PAM's edge-padded u
+    and PD's wrap-padded u, against the twin."""
+    dev = _need_gpu()
+    gen = torch.Generator().manual_seed(m + mk)
+    image = torch.rand((3, m, m), generator=gen).to(dev)
+    p = mk // 2
+    u = torch.nn.functional.pad(image[None], (p,) * 4,
+                                mode="circular" if wrap else "replicate")[0]
+    err = torch.randn((3, m, m), generator=gen).to(dev) * 0.01
+    before = cuda_correlate.launches
+    got = cuda_correlate.psf_gradient_planar(u, err)
+    assert cuda_correlate.launches == before + 1
+    ref = cuda_correlate.psf_gradient_plain(u, err)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(60, 70, 3), (45, 33)])
+def test_metrics_device_path_on_gpu_matches_the_cpu(shape):
+    from ics_tpu_torch.utils.metrics import psnr, ssim
+
+    dev = _need_gpu()
+    gen = torch.Generator().manual_seed(7)
+    a = torch.rand(shape, generator=gen)
+    b = torch.clamp(a + 0.05 * torch.randn(shape, generator=gen), 0.0, 1.0)
+    before = cuda_conv.launches
+    got = ssim(a, b, device=dev)
+    assert cuda_conv.launches == before + 1
+    assert abs(got - ssim(a, b, device="cpu")) <= 1e-6
+    assert abs(psnr(a, b, device=dev) - psnr(a, b, device="cpu")) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_metrics_keep_large_cuda_tensors_on_the_device():
+    """Above 4M elements a CUDA tensor takes the device path in bands (K1),
+    not the host path, and agrees with the host path of its CPU copy."""
+    from ics_tpu_torch.utils.metrics import psnr, ssim
+
+    dev = _need_gpu()
+    gen = torch.Generator().manual_seed(9)
+    a = torch.rand((1200, 1200, 3), generator=gen)
+    b = torch.clamp(a + 0.02 * torch.randn(a.shape, generator=gen), 0.0, 1.0)
+    before = cuda_conv.launches
+    got = ssim(a.to(dev), b.to(dev))
+    assert cuda_conv.launches == before + 2  # bands of 1159 and 35 output rows
+    assert abs(got - ssim(a, b)) <= 1e-6
+    assert abs(psnr(a.to(dev), b.to(dev)) - psnr(a, b)) <= 1e-4

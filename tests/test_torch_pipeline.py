@@ -136,8 +136,6 @@ def test_same_value_errors_as_jax(kw, match):
     [
         dict(display=True),
         dict(mesh=object()),
-        dict(solver="pam"),
-        dict(solver="pd"),
     ],
 )
 def test_unported_options_raise(kw):
@@ -145,6 +143,93 @@ def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         _quiet(ics_tpu_torch.deblur_module, FIXTURE, "x", blur_width=3,
                mask_size=31, iterations=1, verbose=False, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("name", ["blocky", "two-level", "motion", "final+budget"])
+@pytest.mark.parametrize("solver", ["pam", "pd"])
+def test_solver_variants_match_jax(solver, name):
+    """TV-PAM and TV-PD through the whole pipeline: the same outer count at
+    every level, SSIM >= 0.999 against ics_tpu."""
+    pic, blur_width, kw = CASES[name]
+    kw = dict(kw, verbose=False, solver=solver)
+    want_stats, got_stats = [], []
+    want = _quiet(ics_tpu.deblur_module, pic, "x", None, blur_width, stats_out=want_stats, **kw)
+    got = _quiet(ics_tpu_torch.deblur_module, pic, "x", None, blur_width,
+                 stats_out=got_stats, device="cpu", **kw)
+    assert got.dtype == np.uint16 and got.shape == want.shape
+    assert ssim(got / 65535.0, want / 65535.0) >= 0.999
+    assert [(s["case"], s["k"], s["result"].iterations) for s in got_stats] == [
+        (s["case"], s["k"], s["result"].iterations) for s in want_stats
+    ]
+    assert all(s["result"].u_full is None for s in got_stats)
+
+
+@pytest.mark.parametrize("solver", ["pam", "pd"])
+def test_solver_variants_preview_and_psf_checkpoint_match_jax(solver, tmp_path):
+    """``preview`` (the non-blind window written back through the inner-box
+    fallback) and a PSF carried across by ``save_psf_path``/``psf_path``."""
+    kw = dict(mask_size=61, iterations=4, verbose=False, solver=solver)
+    want = _quiet(ics_tpu.deblur_module, TWO_LEVEL, "x", None, 5, preview=True, **kw)
+    got = _quiet(ics_tpu_torch.deblur_module, TWO_LEVEL, "x", None, 5, preview=True,
+                 device="cpu", **kw)
+    assert got.shape == want.shape
+    assert ssim(got / 65535.0, want / 65535.0) >= 0.999
+    path = str(tmp_path / "psf.npz")
+    stats = []
+    _quiet(ics_tpu_torch.deblur_module, TWO_LEVEL, "x", None, 5, save_psf_path=path,
+           stats_out=stats, device="cpu", **kw)
+    np.testing.assert_array_equal(load_checkpoint(path).psf, stats[1]["result"].psf.numpy())
+    want = _quiet(ics_tpu.deblur_module, TWO_LEVEL, "x", None, 3, psf_path=path, **kw)
+    got = _quiet(ics_tpu_torch.deblur_module, TWO_LEVEL, "x", None, 3, psf_path=path,
+                 device="cpu", **kw)
+    assert ssim(got / 65535.0, want / 65535.0) >= 0.999
+
+
+@pytest.mark.parametrize("solver", ["pam", "pd"])
+def test_solver_variants_take_config_and_ignore_the_mm_options(solver, monkeypatch):
+    """As ics_tpu/models/pipeline.py:412-421 routes them: ``config`` reaches
+    every solve; precision, use_tv, tv_norm, inner_loop and early_stop do
+    not change the result; the solver gets no ``verbose``."""
+    import ics_tpu_torch.models.pipeline as tpipe
+
+    name = {"pam": "richardson_lucy_PAM", "pd": "richardson_lucy_PD"}[solver]
+    cls = {"pam": ics_tpu_torch.PAMConfig, "pd": ics_tpu_torch.PDConfig}[solver]
+    cfg = cls(lambda_tv=5e-4)
+    seen = []
+
+    def record(*a, _fn=getattr(tpipe, name), **kw):
+        seen.append((kw["config"], "verbose" in kw))
+        return _fn(*a, **kw)
+
+    monkeypatch.setattr(tpipe, name, record)
+    kw = dict(mask_size=31, iterations=3, verbose=False, solver=solver, device="cpu")
+    plain = _quiet(ics_tpu_torch.deblur_module, FIXTURE, "x", None, 3, config=cfg, **kw)
+    assert seen and set(seen) == {(cfg, False)}
+    other = _quiet(ics_tpu_torch.deblur_module, FIXTURE, "x", None, 3, config=cfg,
+                   precision="mixed", use_tv=True, tv_norm="collab", inner_loop="xla",
+                   early_stop=0.5, **kw)
+    np.testing.assert_array_equal(other, plain)
+
+
+def test_write_back_falls_back_to_the_inner_box():
+    """A result without ``u_full`` (PAM, PD) lands in the inner box
+    [top-1 : bottom+1, left-1 : right+1], as ics_tpu/models/pipeline.py:105-107
+    writes it; with ``u_full`` (MM) the whole padded window is written."""
+    import torch
+
+    from ics_tpu_torch.models.pipeline import _write_back
+    from ics_tpu_torch.models.rl_mm import RLResult
+
+    top, bottom, left, right, pad = 5, 12, 6, 15, 2
+    u = torch.full((bottom - top + 2, right - left + 2, 3), 7.0)
+    res = RLResult(u=u, psf=torch.ones(5, 5, 3), image=u, stats=torch.zeros(5))
+    frame = _write_back(torch.zeros(30, 30, 3), res, top, bottom, left, right, pad)
+    box = torch.zeros(30, 30, 3, dtype=torch.bool)
+    box[top - 1 : bottom + 1, left - 1 : right + 1] = True
+    assert bool((frame[box] == 7.0).all()) and bool((frame[~box] == 0.0).all())
+    res.u_full = torch.full((bottom - top + 2 + 2 * pad, right - left + 2 + 2 * pad, 3), 3.0)
+    frame = _write_back(torch.zeros(30, 30, 3), res, top, bottom, left, right, pad)
+    assert int((frame == 3.0).sum()) == res.u_full.numel()
 
 
 @pytest.mark.parametrize("inner_loop", ["xla", "pallas", "pallas_unrolled"])
