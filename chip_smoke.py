@@ -48,7 +48,22 @@ Phases:
      1.9 MP frame with each solver (K1, K2 > 0 for 'mm'; each TIFF bitwise
      equal to phase 4's array of its solver), and ``bilateral`` /
      ``bilateral-lab`` at crop scale on CUDA against the CPU, within one
-     16-bit code.
+     16-bit code;
+  7. batching and many ranks (``ics_tpu_torch.parallel``): (a) a burst of
+     four 24 MP frames, non-blind with one 9x9 PSF, through
+     ``batched_deconvolve`` 'map' (each lane bitwise one
+     ``richardson_lucy_MM`` call) and 'vmap' (SSIM >= 0.999 against 'map';
+     K1 at most 10 launches per outer of the slowest lane), each profiled
+     for its device time per outer per lane and peak memory; (b) the CLI
+     ``deblur-batch`` on those frames as 16-bit TIFFs, alone and with
+     ``--shard 1`` (one NCCL rank), bitwise equal to each other and to
+     (a)'s 'map' run; (c) the 24 MP ``deblur_module(mesh=...)`` on two
+     gloo ranks sharing cuda:0 (their arrays and blind PSFs bitwise equal,
+     SSIM >= 0.999 against phase 5); (d) ``sharded_richardson_lucy`` at the
+     24 MP final level's shape, 10 outers, against one device (u 5e-5,
+     stats 1e-6) and bitwise reproducible, then with a mask window in the
+     second rank's rows only; (e) ``deblur --shard 1`` at 1.9
+     MP, SSIM >= 0.999 against phase 4.
 
 SSIM comes from ``ics_tpu_torch.utils.metrics``; every pass/fail comparison
 computes it on the CPU, so the yardstick is independent of the kernels.
@@ -137,6 +152,14 @@ def _bound(nbytes: float, ops: float, kind: str, sfu: float = 0.0) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def _gauss_taps(blur: int) -> np.ndarray:
+    """The scenes' 1-D Gaussian blur of width ``blur`` (sigma blur/4), summing
+    to 1."""
+    n = np.arange(blur, dtype=np.float64) - (blur - 1) / 2.0
+    k1 = np.exp(-0.5 * (n / (blur / 4.0)) ** 2)
+    return k1 / k1.sum()
+
+
 def make_scene(h: int, w: int, blur: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
     """A structured synthetic frame (blocks, edges, gradients, texture, kept
     in [0.15, 0.9]), blurred by a Gaussian PSF of width ``blur`` plus small
@@ -160,9 +183,7 @@ def make_scene(h: int, w: int, blur: int, seed: int) -> tuple[np.ndarray, np.nda
     cells = rng.uniform(-0.05, 0.05, (h // 8 + 1, w // 8 + 1, 3)).astype(np.float32)
     img += stripes + np.kron(cells, np.ones((8, 8, 1), np.float32))[:h, :w]
     sharp = np.clip(img, 0.15, 0.9).astype(np.float32)
-    n = np.arange(blur, dtype=np.float64) - (blur - 1) / 2.0
-    k1 = np.exp(-0.5 * (n / (blur / 4.0)) ** 2)
-    k1 /= k1.sum()
+    k1 = _gauss_taps(blur)
     blurred = convolve1d(convolve1d(sharp, k1, axis=0, mode="nearest"), k1, axis=1, mode="nearest")
     blurred += rng.normal(0.0, 0.002, blurred.shape).astype(np.float32)
     return sharp, (np.clip(blurred, 0.0, 1.0) * 255.0).round().astype(np.uint8)
@@ -555,6 +576,10 @@ def _zero_counters() -> None:
     cuda_conv_mma.split_launches = cuda_conv_mma.bf16_launches = 0
 
 
+# the 24 MP case's kwargs (bench.py:336-348)
+KW24 = dict(blur_width=9, mask=[2000, 3000], mask_size=511, display=False, tolerance=0.1,
+            quality="normal", preview=False, blur="static", iterations=200, verbose=False)
+
 # the kernels each solver family's path must launch
 SOLVER_KERNELS = {"pam": ("K1", "K3", "K5"), "pd": ("K3",)}
 
@@ -624,9 +649,7 @@ def phase_pipelines(torch, dev):
     # the paths of K4s, K4 and K5 and the other solver families; the
     # counters are zeroed just before each run and read just after it
     sharp24, pic24 = make_scene(4000, 6000, 9, seed=24)
-    kw24 = dict(blur_width=9, mask=[2000, 3000], mask_size=511, display=False,
-                tolerance=0.1, quality="normal", preview=False, blur="static",
-                iterations=200, verbose=False)
+    kw24 = KW24
     launches, solver_launches = {}, {}
     for label, extra, names in [
         ("exact", dict(precision="exact"), ("K1", "K2", "K3")),
@@ -638,8 +661,10 @@ def phase_pipelines(torch, dev):
     ]:
         torch.cuda.reset_peak_memory_stats(dev)
         _zero_counters()
-        _, wall, comp, levels = _deblur(torch, pic24, "cuda", **kw24, **extra)
+        out24, wall, comp, levels = _deblur(torch, pic24, "cuda", **kw24, **extra)
         counts = _counters()
+        if label == "exact":
+            out24_exact, levels24_exact = out24, levels
         _report(f"24MP 4000x6000 {label}", wall, comp, levels)
         print(f"24MP {label} peak device memory: "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
@@ -668,7 +693,7 @@ def phase_pipelines(torch, dev):
                   dict(solver="pam"), dict(solver="pd")):
         profile_run(torch, pic24, kw24, extra)
     prime_fft_times(torch, dev)
-    return launches, pic19, outs19, pic24
+    return launches, pic19, outs19, pic24, (out24_exact, levels24_exact)
 
 
 def prime_fft_times(torch, dev) -> None:
@@ -835,6 +860,250 @@ def phase_cli(pic19, outs19, pic24) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+def _gauss_psf(blur: int) -> np.ndarray:
+    """``make_scene``'s Gaussian PSF of width ``blur``, as a (blur, blur, 3)
+    kernel."""
+    k1 = _gauss_taps(blur)
+    return np.dstack([np.outer(k1, k1)] * 3).astype(np.float32)
+
+
+def _ssim(a: np.ndarray, b: np.ndarray) -> tuple[float, bool]:
+    """(SSIM of two uint16 arrays on the CPU, bitwise equal); equal arrays
+    have SSIM 1 without the host filters (about 12 s at 24 MP)."""
+    from ics_tpu_torch.utils import metrics
+
+    if np.array_equal(a, b):
+        return 1.0, True
+    return metrics.ssim(a / 65535.0, b / 65535.0, device="cpu"), False
+
+
+def _device_seconds(torch, prof) -> float:
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+
+
+def _batch_runs(torch, dev, imgs, us, psfs, window):
+    """(a): the burst through batched_deconvolve, 'map' then 'vmap', each
+    under torch.profiler with the counters zeroed just before it; every
+    'map' lane against a single richardson_lucy_MM call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ics_tpu_torch.cli import batch_codes
+    from ics_tpu_torch.models.rl_mm import richardson_lucy_MM
+    from ics_tpu_torch.parallel import batched_deconvolve
+
+    kw = dict(tau=0.01, iterations=200, step_factor=1e-3, lambd=10000.0, blind=False)
+    runs = {}
+    for schedule in ("map", "vmap"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counters()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            u_b, _, stats_b = batched_deconvolve(imgs, us, psfs, *window, schedule=schedule,
+                                                 device=dev, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = _counters()
+        outers = [int(n) for n in stats_b[:, 0].tolist()]
+        device_s = _device_seconds(torch, prof)
+        print(f"burst 4x24MP '{schedule}': wall {wall:.3f} s, per-lane outers {outers}, "
+              f"device {device_s:.3f} s, {device_s / sum(outers) * 1e3:.3f} ms device time per "
+              f"outer per lane, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, "
+              f"launches {json.dumps(counts)}")
+        runs[schedule] = (u_b, outers, counts)
+    (u_map, outers_map, k_map), (u_vmap, outers_vmap, k_vmap) = runs["map"], runs["vmap"]
+    _require(k_map["K1"] == 10 * sum(outers_map) and k_vmap["K1"] > 0,
+             "burst: K1 launched 10 times per outer of every 'map' lane, and under 'vmap'")
+    _require(k_vmap["K1"] <= 10 * max(outers_vmap),
+             f"burst 'vmap': {k_vmap['K1']} K1 launches <= 10 x the largest lane's "
+             f"{max(outers_vmap)} outers (one launch per conv for all lanes)")
+    for i in range(len(imgs)):
+        single = richardson_lucy_MM(imgs[i], us[i], psfs[i], *window, verbose=False, device=dev,
+                                    **kw)
+        _require(single.iterations == outers_map[i] and torch.equal(single.u, u_map[i]),
+                 f"burst lane {i}: 'map' bitwise equal to one richardson_lucy_MM call, "
+                 f"{single.iterations} outers")
+        del single
+    codes = {k: batch_codes(u) for k, u in (("map", u_map), ("vmap", u_vmap))}
+    del u_map, u_vmap, runs
+    for i in range(len(imgs)):
+        s, same = _ssim(codes["vmap"][i], codes["map"][i])
+        print(f"burst lane {i}: 'vmap' {outers_vmap[i]} outers, 'map' {outers_map[i]}; SSIM "
+              f"{s:.7f}, bitwise equal {same}")
+        _require(s >= 0.999, f"burst lane {i}: 'vmap' SSIM >= 0.999 against 'map'")
+    return codes["map"]
+
+
+def _mesh_rank(rank: int, port: int, tmp: str) -> None:
+    """(c) and (d) on one of two gloo ranks sharing cuda:0: the 24 MP
+    deblur_module(mesh=...), then two sharded_richardson_lucy calls at the
+    final level's shape."""
+    import torch
+    import torch.distributed as dist
+
+    from ics_tpu_torch import deblur_module
+    from ics_tpu_torch.parallel import initialize, make_mesh, sharded_richardson_lucy
+
+    initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda")
+    try:
+        mesh = make_mesh(2)
+        pic = np.load(os.path.join(tmp, "pic24.npy"))
+        stats = []
+        _zero_counters()
+        t0 = time.perf_counter()
+        out = deblur_module(pic, "smoke", None, mesh=mesh, stats_out=stats, device="cuda",
+                            **KW24)
+        wall = time.perf_counter() - t0
+        counts = _counters()
+        blind = {f"blind_psf{i}": s["result"].psf.cpu().numpy()
+                 for i, s in enumerate(x for x in stats if x["case"] == "blind")}
+        levels = np.array([s["result"].iterations for s in stats])
+        image, u, psf = (np.load(os.path.join(tmp, f"d_{k}.npy")) for k in ("image", "u", "psf"))
+        window = np.load(os.path.join(tmp, "d_window.npy")).tolist()
+        calls, walls = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls.append(sharded_richardson_lucy(image, u, psf, *window, 1e9, mesh=mesh,
+                                                 iterations=10, step_factor=1e-3,
+                                                 lambd=10000.0, blind=False))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        repro = all(torch.equal(getattr(calls[0], k), getattr(calls[1], k))
+                    for k in ("u", "u_full", "psf", "stats"))
+        # a window wholly in rank 1's rows: rank 0 sends none of it
+        low = sharded_richardson_lucy(image, u, psf, *np.load(os.path.join(tmp, "d_low.npy")),
+                                      1e9, mesh=mesh, iterations=10, step_factor=1e-3,
+                                      lambd=10000.0, blind=False)
+        np.savez(os.path.join(tmp, f"mesh_r{rank}.npz"), out=out, levels=levels, wall=wall,
+                 k1=counts["K1"], k2=counts["K2"], k3=counts["K3"], d_walls=np.array(walls),
+                 d_repro=repro, d_stats=calls[0].stats.cpu().numpy(),
+                 low_stats=low.stats.cpu().numpy(),
+                 **({"d_u": calls[0].u.cpu().numpy(), "low_u": low.u.cpu().numpy()}
+                    if rank == 0 else {}), **blind)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(torch, dev, pic19, out19, pic24, exact24) -> None:
+    """7. batching and many ranks: (a) a burst of four 24 MP frames through
+    batched_deconvolve, 'map' and 'vmap'; (b) the CLI deblur-batch on them,
+    alone and with --shard 1 (one NCCL rank); (c) the 24 MP deblur_module
+    on two gloo ranks sharing cuda:0; (d) sharded_richardson_lucy at the
+    24 MP final level's shape; (e) deblur --shard 1 at 1.9 MP."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from ics_tpu_torch.cli import _free_port, batch_inputs
+    from ics_tpu_torch.models.checkpoint import SolverCheckpoint, save_checkpoint
+    from ics_tpu_torch.models.rl_mm import richardson_lucy_MM
+    from ics_tpu_torch.utils.io import imread, imsave
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the burst, as 16-bit frames, through the CLI's own preprocessing
+        frames = np.stack([make_scene(4000, 6000, 9, seed=i)[1].astype(np.uint16) * 257
+                           for i in range(4)])
+        psf = _gauss_psf(9)
+        imgs, us, psfs, window = batch_inputs(frames, psf, None, 511)
+        codes_map = _batch_runs(torch, dev, imgs, us, psfs, window)
+        del imgs, us, psfs
+
+        # (b) the CLI on the same frames, TIFF in and out
+        for i, frame in enumerate(frames):
+            imsave(os.path.join(tmp, f"burst{i}.tif"), frame)
+        del frames
+        ckpt = os.path.join(tmp, "psf.npz")
+        save_checkpoint(ckpt, SolverCheckpoint(psf=psf, blur_width=9))
+        outs = {}
+        for extra in ([], ["--shard", "1"]):
+            dest = os.path.join(tmp, f"batch{len(extra)}")
+            wall, counts = _cli(["deblur-batch", os.path.join(tmp, "burst*.tif"), dest, "--psf",
+                                 ckpt, "--mask-size", "511", *extra])
+            outs[len(extra)] = np.stack([imread(os.path.join(dest, f"burst{i}-deblurred.tif"))
+                                         for i in range(4)])
+            print(f"CLI deblur-batch 4x24MP {' '.join(extra) or '(one process)'}: wall "
+                  f"{wall:.3f} s, launches in this process {json.dumps(counts)}")
+        _require(np.array_equal(outs[0], outs[2]),
+                 "CLI deblur-batch TIFFs bitwise equal with and without --shard 1 (NCCL)")
+        _require(np.array_equal(outs[0], codes_map),
+                 "CLI deblur-batch TIFFs bitwise equal to the library's 'map' run")
+        del outs, codes_map
+
+        # (c) and (d) on two gloo ranks sharing cuda:0
+        np.save(os.path.join(tmp, "pic24.npy"), pic24)
+        # the final level's frame: the odd-padded 4003x6003 plus the safety ring
+        image = np.pad(pic24.astype(np.float32) / 255.0, ((3, 2), (3, 2), (0, 0)), mode="edge")
+        u = np.pad(image, ((4, 4), (4, 4), (0, 0)), mode="edge")
+        d_window = [5, 506, 5, 506]  # the final level's mask box, as the pipeline makes it
+        d_low = [3200, 3711, 2745, 3256]  # a mask in the lower half: rank 1's rows only
+        for k, v in (("image", image), ("u", u), ("psf", psf), ("window", np.array(d_window)),
+                     ("low", np.array(d_low))):
+            np.save(os.path.join(tmp, f"d_{k}.npy"), v)
+        single, single_low = (richardson_lucy_MM(image, u, psf, *w, 1e9, iterations=10,
+                                                 step_factor=1e-3, lambd=10000.0, blind=False,
+                                                 verbose=False, device=dev)
+                              for w in (d_window, d_low))
+        t0 = time.perf_counter()
+        mp.start_processes(_mesh_rank, args=(_free_port(), tmp), nprocs=2, join=True,
+                           start_method="spawn")
+        spawn_wall = time.perf_counter() - t0
+        ranks = [dict(np.load(os.path.join(tmp, f"mesh_r{r}.npz"))) for r in range(2)]
+        out24, levels24 = exact24
+        s, same = _ssim(ranks[0]["out"], out24)
+        print(f"24MP deblur_module on 2 gloo ranks sharing cuda:0: wall {float(ranks[0]['wall']):.3f}"
+              f" / {float(ranks[1]['wall']):.3f} s (one device, phase 5: see above), outers per "
+              f"level {ranks[0]['levels'].tolist()} against {[n for _, _, n, _ in levels24]}, "
+              f"K1/K2/K3 on rank 0 {int(ranks[0]['k1'])}/{int(ranks[0]['k2'])}/"
+              f"{int(ranks[0]['k3'])}; SSIM against one device {s:.7f}, bitwise equal "
+              f"{same}; both ranks started and ran in "
+              f"{spawn_wall:.1f} s")
+        _require(np.array_equal(ranks[0]["out"], ranks[1]["out"]),
+                 "24 MP mesh: the two ranks' arrays bitwise equal")
+        blind_keys = [k for k in ranks[0] if k.startswith("blind_psf")]
+        _require(blind_keys and all(np.array_equal(ranks[0][k], ranks[1][k]) for k in blind_keys),
+                 "24 MP mesh: the two ranks' blind PSFs bitwise equal")
+        _require(s >= 0.999, "24 MP mesh: SSIM >= 0.999 against phase 5's one-device array")
+        _require(int(ranks[0]["k1"]) > 0 and int(ranks[0]["k3"]) > 0,
+                 "24 MP mesh: K1 and K3 launched on each rank's path")
+        d_err = float(np.abs(ranks[0]["d_u"] - single.u.cpu().numpy()).max())
+        st_err = float(np.abs(ranks[0]["d_stats"] - single.stats.cpu().numpy()).max())
+        print(f"sharded_richardson_lucy 4005x6005 mk 9, 10 outers, 2 gloo ranks: calls "
+              f"{ranks[0]['d_walls'].round(3).tolist()} s; u against one device {d_err:.3e}, "
+              f"stats {st_err:.3e}")
+        _require(d_err <= 5e-5 and st_err <= 1e-6,
+                 "sharded solve at 24 MP: u within 5e-5 and stats within 1e-6 of one device")
+        _require(all(bool(r["d_repro"]) for r in ranks)
+                 and np.array_equal(ranks[0]["d_stats"], ranks[1]["d_stats"]),
+                 "sharded solve at 24 MP: bitwise reproducible, the same stats on both ranks")
+        low_err = float(np.abs(ranks[0]["low_u"] - single_low.u.cpu().numpy()).max())
+        low_st = float(np.abs(ranks[0]["low_stats"] - single_low.stats.cpu().numpy()).max())
+        print(f"sharded_richardson_lucy, mask rows {d_low[0]}-{d_low[1]} (rank 1's only): u "
+              f"against one device {low_err:.3e}, stats {low_st:.3e}")
+        _require(low_err <= 5e-5 and low_st <= 1e-6
+                 and np.array_equal(ranks[0]["low_stats"], ranks[1]["low_stats"]),
+                 "sharded solve at 24 MP, mask in one rank's rows: u within 5e-5 and stats "
+                 "within 1e-6 of one device, the same stats on both ranks")
+        del ranks, single, single_low
+
+        # (e) deblur --shard 1 at 1.9 MP (one NCCL rank)
+        src = os.path.join(tmp, "scene19.tif")
+        imsave(src, pic19)
+        dest = os.path.join(tmp, "shard1")
+        wall, _ = _cli(["deblur", src, dest, "--blur-width", "7", "--mask", "584", "795",
+                        "--tolerance", "0.1", "--shard", "1"])
+        got = imread(os.path.join(dest, "scene19-deblurred.tif"))
+        s, same = _ssim(got, out19)
+        print(f"CLI deblur --shard 1 1.9MP: wall {wall:.3f} s, SSIM against phase 4 {s:.7f}, "
+              f"bitwise equal {same}")
+        _require(got.shape == out19.shape and s >= 0.999,
+                 "CLI deblur --shard 1 SSIM >= 0.999 against phase 4's array")
+    print(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -842,6 +1111,7 @@ def main() -> int:
         print("FAIL torch.cuda.is_available() is False: this needs a CUDA GPU",
               file=sys.stderr)
         return 2
+    t_smoke = time.perf_counter()
     from ics_tpu_torch import _build
     from ics_tpu_torch._device import exact_f32
 
@@ -868,8 +1138,9 @@ def main() -> int:
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
     rows = phase_kernels(torch, dev, rng)
-    launches, pic19, outs19, pic24 = phase_pipelines(torch, dev)
+    launches, pic19, outs19, pic24, exact24 = phase_pipelines(torch, dev)
     launches.update(phase_cli(pic19, outs19, pic24))
+    phase_parallel(torch, dev, pic19, outs19["mm"], pic24, exact24)
 
     sources = {
         "K1": ("ics_tpu_torch/csrc/conv2d.cu", "ics_tpu/ops/pallas_conv.py:39"),
@@ -889,6 +1160,7 @@ def main() -> int:
          "lib_ms": rows[name]["library_ms"]}
         for name, (src, rep) in sources.items()
     ]}
+    print(f"smoke: {time.perf_counter() - t_smoke:.1f} s")
     print(f"card: {smi}")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

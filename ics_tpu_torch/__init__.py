@@ -21,6 +21,8 @@ Public surface of this slice:
   - ``normalize_kernel``   (reference: lib/deconvolution.pyx:73)
   - ``tv_denoise`` and the ``utils`` modules ``filters``, ``color``,
     ``metrics`` and ``io`` (reference: lib/utils.py)
+  - ``ics_tpu_torch.parallel``: batched deconvolution of a burst and the
+    row-sharded solve over many ranks (``deblur_module(mesh=...)``)
 """
 
 from ics_tpu_torch.ops.windows import (

@@ -7,9 +7,13 @@ same subcommands, flags and defaults; ref deconvolve.py:370-423).
     python -m ics_tpu_torch bilateral-lab img/DSC0001.tif out/ --radius 5
     python -m ics_tpu_torch tv-denoise img/DSC0001.tif out/ --weight 0.1
 
+    python -m ics_tpu_torch deblur-batch 'burst/*.tif' out/ --psf psf.npz --shard 2
+
 Everything runs on the GPU; ``main(argv, device="cpu")`` runs it on the CPU
-(there is no flag for it).  Not ported yet, and exiting non-zero with their
-ROADMAP item: ``deblur-batch`` and ``--shard`` (item 11).
+(there is no flag for it).  ``--shard N`` starts N ranks, one process each
+(``torch.multiprocessing``, spawned), joined over a free localhost port:
+NCCL with a GPU each on CUDA (N up to the GPU count), gloo on the CPU (N up
+to the core count).  Rank 0 writes the TIFFs and prints.
 """
 
 from __future__ import annotations
@@ -21,17 +25,68 @@ import sys
 import numpy as np
 import torch
 
-_BATCHING = "ROADMAP item 11, batching and multiple GPUs"
+def _check_shard(cmd: str, n: int, device) -> None:
+    """``--shard N`` takes 1 to the GPU count on CUDA, 1 to the core count
+    on the CPU."""
+    available, what = ((torch.cuda.device_count(), "devices") if device.type == "cuda"
+                       else (os.cpu_count() or 1, "CPU cores"))
+    if n < 1 or n > available:
+        raise SystemExit(
+            f"{cmd}: --shard {n} must be between 1 and the {available} available {what}"
+        )
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(run, args, device, axis: str) -> None:
+    """Run ``run(args, device, mesh)`` on ``args.shard`` spawned ranks over a
+    1-D mesh named ``axis``; raises if any rank fails."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_rank_main, args=(run, args, device.type, _free_port(), axis),
+                       nprocs=args.shard, join=True, start_method="spawn")
+
+
+def _rank_main(rank, run, args, device_type, port, axis) -> None:
+    import contextlib
+
+    import torch.distributed as dist
+
+    from ics_tpu_torch.parallel import initialize, make_mesh
+
+    if device_type == "cpu":  # the ranks share the cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.shard))
+    initialize(f"127.0.0.1:{port}", args.shard, rank, device=device_type)
+    try:
+        mesh = make_mesh(args.shard, axis_name=axis, device=device_type)
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(
+                null if rank else sys.stdout):
+            run(args, torch.device(device_type), mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def _cmd_deblur(args, device) -> int:
-    from ics_tpu_torch.models.pipeline import deblur_module
-    from ics_tpu_torch.utils.io import load_image
-
     if args.blur_width is None and args.psf is None:
         raise SystemExit("deblur: either --blur-width or --psf is required")
     if args.shard:
-        raise SystemExit(f"deblur: --shard is not ported to ics_tpu_torch yet ({_BATCHING})")
+        from ics_tpu_torch.parallel import TILE_AXIS
+
+        _check_shard("deblur", args.shard, device)
+        _spawn(_deblur, args, device, TILE_AXIS)
+        return 0
+    return _deblur(args, device, None)
+
+
+def _deblur(args, device, mesh) -> int:
+    from ics_tpu_torch.models.pipeline import deblur_module
+    from ics_tpu_torch.utils.io import load_image
 
     if args.profile == "fast":
         # one-flag speed profile; mirrors ics_tpu/cli.py:28-39, which also
@@ -71,13 +126,94 @@ def _cmd_deblur(args, device) -> int:
         inner_loop=args.inner_loop,
         trace=args.trace,
         nonblind_levels=args.nonblind_levels,
+        mesh=mesh,
         device=device,
     )
     return 0
 
 
 def _cmd_deblur_batch(args, device) -> int:
-    raise SystemExit(f"deblur-batch is not ported to ics_tpu_torch yet ({_BATCHING})")
+    """Batched non-blind deconvolution of a burst of same-shaped frames with
+    one stored PSF: the reference README's PSF-reuse workflow (ref
+    README.md:131-133), as ics_tpu/cli.py:87-171 runs it.  Estimate the PSF
+    once (``deblur --save-psf``), then deconvolve the burst with per-frame
+    whiteness stopping; ``--shard N`` splits the frames over N ranks."""
+    import glob
+
+    paths = sorted(glob.glob(args.pattern))
+    if not paths:
+        raise SystemExit(f"deblur-batch: no files match {args.pattern!r}")
+    if args.shard:
+        from ics_tpu_torch.parallel import BATCH_AXIS
+
+        _check_shard("deblur-batch", args.shard, device)
+        if len(paths) % args.shard:
+            raise SystemExit(
+                f"deblur-batch: batch of {len(paths)} frames must divide by "
+                f"--shard {args.shard}"
+            )
+        _spawn(_deblur_batch, args, device, BATCH_AXIS)
+        return 0
+    return _deblur_batch(args, device, None)
+
+
+def batch_inputs(pics: np.ndarray, psf: np.ndarray, bits: int | None, mask_size: int):
+    """``deblur-batch``'s host preprocessing of a (B, H, W, 3) stack: scale by
+    the bit depth (float input is taken as [0, 1]), remove gamma, pad each
+    frame by the PSF's halo and centre the mask.  Returns (images, us, psfs,
+    (top, bottom, left, right)) as float32 NumPy arrays, as ics_tpu's CLI
+    makes them."""
+    b, h, w, _ = pics.shape
+    pad = psf.shape[0] // 2
+    if np.issubdtype(pics.dtype, np.floating) and bits is None:
+        imgs = pics.astype(np.float32) ** (1 / 2.2)
+    else:
+        bits = bits if bits is not None else (8 if pics.dtype == np.uint8 else 16)
+        imgs = (pics.astype(np.float32) / float(2**bits - 1)) ** (1 / 2.2)
+    mask_size = min(mask_size, min(h, w) - 2) | 1
+    top = h // 2 - mask_size // 2
+    left = w // 2 - mask_size // 2
+    us = np.pad(imgs, ((0, 0), (pad, pad), (pad, pad), (0, 0)), mode="edge")
+    psfs = np.broadcast_to(psf, (b, *psf.shape))
+    return imgs, us, psfs, (top, top + mask_size, left, left + mask_size)
+
+
+def batch_codes(u_b: torch.Tensor) -> np.ndarray:
+    """Deconvolved frames to 16-bit codes: clip, re-gamma, scale, truncate."""
+    return (torch.clamp(u_b, 0.0, 1.0) ** 2.2 * (2**16 - 1)).to(torch.int32).cpu().numpy() \
+        .astype(np.uint16)
+
+
+def _deblur_batch(args, device, mesh) -> int:
+    import glob
+
+    import torch.distributed as dist
+
+    from ics_tpu_torch.models.checkpoint import load_checkpoint
+    from ics_tpu_torch.models.pipeline import QUALITY_STEP
+    from ics_tpu_torch.parallel import batched_deconvolve
+    from ics_tpu_torch.utils.io import imread_sequence, save
+
+    psf = np.asarray(load_checkpoint(args.psf).psf, np.float32)
+    paths = sorted(glob.glob(args.pattern))
+    pics = np.asarray(imread_sequence(paths))
+    if pics.ndim != 4 or pics.shape[-1] != 3:
+        raise SystemExit(f"deblur-batch: expected a stack of RGB frames, got {pics.shape}")
+    imgs, us, psfs, window = batch_inputs(pics, psf, args.bits, args.mask_size)
+    u_b, _, stats_b = batched_deconvolve(
+        imgs, us, psfs, *window, tau=args.tolerance / 100.0, iterations=args.iterations,
+        step_factor=QUALITY_STEP[args.quality], lambd=args.confidence * 1000.0, blind=False,
+        mesh=mesh, device=device,
+    )
+    out, stats = batch_codes(u_b), stats_b.cpu().numpy()
+    if mesh is not None and dist.get_rank() != 0:
+        return 0
+    os.makedirs(args.dest, exist_ok=True)
+    for i, path in enumerate(paths):
+        name = os.path.splitext(os.path.basename(path))[0] + args.suffix
+        save(out[i], name, args.dest)
+        print(f"{name}: {int(stats[i][0])} outers, converged={bool(stats[i][1])}")
+    return 0
 
 
 def _load_unit(path: str, bits: int | None) -> np.ndarray:
@@ -227,7 +363,8 @@ def main(argv=None, device="cuda") -> int:
                    help="cap the COARSE blind pyramid levels at N outer "
                         "iterations (off by default: reference parity)")
     p.add_argument("--shard", type=int, default=0, metavar="N",
-                   help="not ported (ROADMAP item 11)")
+                   help="split the full-frame non-blind solves' rows over N "
+                        "ranks (GPUs; CPU processes with the CPU)")
     p.add_argument("--profile", default="quality", choices=["quality", "fast"],
                    help="'fast' = --blind-budget 25 + --early-stop 1e-3 + "
                         "--precision high")
@@ -242,7 +379,8 @@ def main(argv=None, device="cuda") -> int:
                  "(uint8 -> 8, uint16 -> 16)")
 
     p = sub.add_parser("deblur-batch",
-                       help="batched non-blind deconvolution (not ported: ROADMAP item 11)")
+                       help="batched non-blind deconvolution of a burst with one "
+                            "stored PSF")
     p.add_argument("pattern", help="glob of same-shaped frames (quote it)")
     p.add_argument("dest")
     p.add_argument("--psf", required=True, metavar="CKPT",
@@ -253,7 +391,9 @@ def main(argv=None, device="cuda") -> int:
                    choices=["low", "normal", "high", "veryhigh"])
     p.add_argument("--mask-size", type=int, default=255)
     p.add_argument("--iterations", type=int, default=200)
-    p.add_argument("--shard", type=int, default=0, metavar="N")
+    p.add_argument("--shard", type=int, default=0, metavar="N",
+                   help="split the frames over N ranks (GPUs; CPU processes "
+                        "with the CPU)")
     p.add_argument("--suffix", default="-deblurred")
     _bits_arg(p)
     p.set_defaults(fn=_cmd_deblur_batch)

@@ -17,7 +17,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 
 from ics_tpu_torch._device import exact_f32, resolve_device, synchronize
 from ics_tpu_torch.models.checkpoint import (
@@ -30,6 +32,7 @@ from ics_tpu_torch.models.rl_pam import richardson_lucy_PAM
 from ics_tpu_torch.models.rl_pd import richardson_lucy_PD
 from ics_tpu_torch.ops.psf import normalize_kernel
 from ics_tpu_torch.ops.windows import uniform_kernel
+from ics_tpu_torch.parallel.tiling import sharded_richardson_lucy
 from ics_tpu_torch.utils.io import save
 from ics_tpu_torch.utils.resize import resize as resize_scipy
 from ics_tpu_torch.utils.resize import resize_jax
@@ -41,6 +44,9 @@ __all__ = ["pad_image", "build_pyramid", "deblur_module"]
 # precision='hybrid'/'hybrid-high': smallest coarse non-blind level that
 # runs the reduced-precision config (ics_tpu/models/pipeline.py:38)
 _HYBRID_MIN_PIXELS = 2_000_000
+
+# the solver's step factor for each --quality (deblur and deblur-batch)
+QUALITY_STEP = {"normal": 1e-3, "high": 5e-4, "veryhigh": 1e-4, "low": 5e-3}
 
 
 def _upload(raw: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -181,9 +187,17 @@ def deblur_module(
     pyramid, routed as ics_tpu/models/pipeline.py:412-421 routes them:
     ``config`` passes through as their ``PAMConfig`` / ``PDConfig``;
     ``precision``, ``use_tv``, ``tv_norm``, ``inner_loop``, ``early_stop``
-    and ``verbose``'s solver report are the 'mm' solver's only.  The
-    unported options (``display``, ``mesh``) raise ``NotImplementedError``
-    naming their ROADMAP item.
+    and ``verbose``'s solver report are the 'mm' solver's only.
+    ``display`` is not ported and raises ``NotImplementedError`` naming its
+    ROADMAP item.
+
+    ``mesh``: a 1-D ``DeviceMesh`` (``parallel.make_mesh``) whose dimension
+    is named ``shard_axis``; every rank calls ``deblur_module`` with the
+    same arguments.  The full-frame non-blind levels split their rows over
+    the ranks (``parallel.sharded_richardson_lucy``); the blind mask-window
+    levels run whole on every rank.  Every rank returns the same array;
+    only rank 0 writes ``dest_path`` and ``save_psf_path``.  The 'mm'
+    solver only.
 
     ``device``: 'cuda' (the default; raises without a GPU) or 'cpu'.
     ``compute_timer`` times upload-complete to result-ready on the device,
@@ -200,7 +214,16 @@ def deblur_module(
     if display:
         raise _not_ported("display=True (matplotlib)", "Host-side I/O, display and the CLI")
     if mesh is not None:
-        raise _not_ported("mesh sharding", "Batching and multiple GPUs")
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch DeviceMesh, got {type(mesh).__name__}")
+        if tuple(mesh.mesh_dim_names or ()) != (shard_axis,):
+            raise ValueError(
+                f"mesh must be 1-D with its dimension named {shard_axis!r}, got "
+                f"{mesh.mesh_dim_names}"
+            )
+        if mesh.device_type != dev.type:
+            raise ValueError(f"a {mesh.device_type} mesh for device {str(dev)!r}")
+    writes = mesh is None or dist.get_rank() == 0
 
     if resize_backend == "jax":
         resize = resize_jax
@@ -217,7 +240,7 @@ def deblur_module(
         synchronize(dev)
         compute_timer["_t0"] = time.perf_counter()
 
-    step = {"normal": 1e-3, "high": 5e-4, "veryhigh": 1e-4, "low": 5e-3}[quality]
+    step = QUALITY_STEP[quality]
 
     loaded_psf = None
     if psf_path is not None and save_psf_path is not None:
@@ -251,6 +274,8 @@ def deblur_module(
         raise ValueError("nonblind_levels must be 'all' or 'final'")
     if blind_budget is not None and blind_budget < 1:
         raise ValueError("blind_budget must be a positive iteration count")
+    if mesh is not None and solver != "mm":
+        raise ValueError("mesh sharding is only supported by the 'mm' solver")
 
     M, N = pic.shape[0], pic.shape[1]
 
@@ -319,6 +344,10 @@ def deblur_module(
         solve = lambda *a, cfg=solver_cfg, **kw: richardson_lucy_MM(
             *a, config=cfg, verbose=verbose, device=dev, **kw
         )
+        if mesh is not None:  # the full-frame levels, rows over the ranks
+            full_solve = lambda *a, cfg=solver_cfg, **kw: sharded_richardson_lucy(
+                *a, mesh=mesh, axis=shard_axis, config=cfg, verbose=verbose, **kw
+            )
     else:
         # 'pam' / 'pd': ``config`` is their PAMConfig / PDConfig (None for
         # the defaults), the same on every level
@@ -444,7 +473,7 @@ def deblur_module(
                         else solver_cfg
                     )
                     with _stage("solve (non-blind)"):
-                        res = solve(
+                        res = (solve if mesh is None else full_solve)(
                             temp_blurry_image,
                             deblured_image,
                             psf_copy,
@@ -465,7 +494,7 @@ def deblur_module(
                 temp_blurry_image = temp_blurry_image[1:-1, 1:-1, ...]
                 deblured_image = deblured_image[1:-1, 1:-1, ...]
 
-            if case == "blind" and save_psf_path is not None:
+            if case == "blind" and save_psf_path is not None and writes:
                 # persist right after the blind phase, so the estimate
                 # survives an interrupted non-blind pass
                 save_checkpoint(
@@ -503,7 +532,7 @@ def deblur_module(
             deblured_image = deblured_image[1:, :, ...]
         deblured_image = deblured_image[1:-1, 1:-1, ...]
 
-    if dest_path is not None:
+    if dest_path is not None and writes:
         with _stage("tiff save"):
             os.makedirs(dest_path, exist_ok=True)
             save(deblured_image, filename, dest_path)

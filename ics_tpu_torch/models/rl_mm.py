@@ -34,7 +34,7 @@ from ics_tpu_torch.ops.conv import _autocorrelate_planar, conv_planar
 from ics_tpu_torch.ops.cuda_correlate import psf_gradient_planar
 from ics_tpu_torch.ops.cuda_solver import fits, inner_loop_ops, inner_loop_planar
 from ics_tpu_torch.ops.reductions import whiteness_weights
-from ics_tpu_torch.ops.tv import tv_auto_planar
+from ics_tpu_torch.ops.tv import _couple, tv_auto_planar
 
 __all__ = ["richardson_lucy_MM", "RLConfig", "RLResult", "inner_loop_route",
            "print_solver_report"]
@@ -140,10 +140,17 @@ class RLResult:
 
 
 def _planar(a: torch.Tensor) -> torch.Tensor:
+    """(H, W, C) to planar (C, H, W); a batch (B, H, W, C) folds its images
+    into the channel axis, (B*C, H, W)."""
+    if a.ndim == 4:
+        return a.permute(0, 3, 1, 2).reshape(-1, *a.shape[1:3]).contiguous()
     return a.permute(2, 0, 1).contiguous()
 
 
-def _hwc(a: torch.Tensor) -> torch.Tensor:
+def _hwc(a: torch.Tensor, lanes: int | None = None) -> torch.Tensor:
+    """The inverse of ``_planar``; ``lanes`` unfolds a batch (B, H, W, C)."""
+    if lanes is not None:
+        return a.reshape(lanes, -1, *a.shape[1:]).permute(0, 2, 3, 1).contiguous()
     return a.permute(1, 2, 0).contiguous()
 
 
@@ -234,9 +241,19 @@ def _solve(
     early_stop_patience=10,
     use_stopping=True,
     record=False,
+    shard=None,
 ):
     """One solve on (H, W, C) tensors of one device; returns
-    (u_out, u_full, psf, image, stats, hist) as the JAX ``_solve`` does."""
+    (u_out, u_full, psf, image, stats, hist) as the JAX ``_solve`` does.
+
+    A batch (B, H, W, C) is solved as one: its images fold into the planar
+    channel axis, so each convolution is one launch for all of them, while
+    each image keeps its own PSF maxima and its own stop; an image that has
+    stopped drops out of the fold and keeps its state.  Its stats are
+    (B, 5).  ``shard`` (``parallel.tiling.RowShard``): the tensors are this
+    rank's rows of a row-sharded solve; every rank reads the mask window
+    whole, makes the same stop decision and returns the same stats.
+    """
     exact_f32()
     if conv_precision not in ("exact", "high", "fast"):
         raise ValueError(
@@ -258,6 +275,10 @@ def _solve(
             "backend from its dtype, precision and size (ROADMAP, 'Not "
             "ported, on purpose')"
         )
+    batch = image.shape[0] if image.ndim == 4 else None
+    lanes, chans = batch or 1, image.shape[-1]
+    if record and lanes > 1:
+        raise ValueError("record_metrics takes one image, not a batch")
     dev = u.device
     f32 = torch.float32
     # mixed precision applies to non-blind solves (rl_mm.py:347-366)
@@ -270,13 +291,16 @@ def _solve(
     psf = _planar(psf.to(compute))
     _, m, n = image.shape
     _, u_m, u_n = u.shape
+    if shard is not None:
+        m, u_m = shard.rows, shard.u_rows
     pad = (u_m - m) // 2
     weights = torch.as_tensor(weights, dtype=f32, device=dev)
 
-    route = inner_loop_route(inner_loop, device_type=dev.type, fits=fits(u_m, u_n),
+    route = inner_loop_route(inner_loop, device_type=dev.type,
+                             fits=fits(u_m, u_n) and lanes == 1 and shard is None,
                              use_tv=use_tv, guard=guard, compute=compute, mixed=mixed)
     if route == "kernel":
-        def inner(u, image, psf, **kw):
+        def inner(u, image, psf, lanes, **kw):
             return *inner_loop_planar(u, image, psf, **kw), image
     else:
         conv = functools.partial(
@@ -287,64 +311,105 @@ def _solve(
         else:
             grad = lambda u, err: conv(torch.flip(u, dims=(1, 2)), err, "valid")
         collab = _TV_NORMS[tv_norm]
-        tv = (lambda a, norm: tv_auto_planar(a, epsilon, 2, norm, tv_method, collab)
-              ) if use_tv else None
+        tv = (lambda a, norm: _tv_lanes(a, epsilon, norm, tv_method, collab,
+                                        a.shape[0] // chans)) if use_tv else None
 
-        def inner(u, image, psf, **kw):
+        def inner(u, image, psf, lanes, **kw):
             return inner_loop_ops(
                 u, image, psf, conv=conv, psf_grad=grad, guard=guard,
-                mixed=mixed, tv=tv, **kw
+                mixed=mixed, tv=tv, lanes=lanes, shard=shard, **kw
             )
 
-    zero = torch.zeros((), dtype=f32, device=dev)
-    m_r = m_r_prev = zero
-    m_r_best = torch.tensor(float("inf"), dtype=f32, device=dev)
-    since_best = 0
-    error = torch.zeros_like(image)
-    it, stop = 0, False
-    hist = {"M_r": [], "Hu": [], "varu": []}
-    win = (bottom - top) * (right - left) * 3
     window = (top, bottom, left, right)
 
-    while it < iterations and not stop:
-        u, psf, error, image = inner(
-            u, image, psf, step_factor=step_factor, lambd=lambd, blind=blind,
-            correlation=correlation,
-        )
+    def whole(x, space):
+        """x's mask window, whole on every rank, and where to read it: the
+        window of x itself on one device; under a shard, rows [top, bottom)
+        and columns [left, right) of x ('u' or 'image' rows), gathered."""
+        if shard is None:
+            return x, window
+        rows = shard.gather(x[:, :, left:right], top, bottom, space)
+        return rows, (0, bottom - top, 0, right - left)
+
+    lane = (lambda x, i: x) if lanes == 1 else (lambda x, i: x[chans * i : chans * (i + 1)])
+    zero = torch.zeros((), dtype=f32, device=dev)
+    m_r = [zero] * lanes
+    m_r_prev = [zero] * lanes
+    m_r_best = [torch.tensor(float("inf"), dtype=f32, device=dev)] * lanes
+    since_best = [0] * lanes
+    its, stops = [0] * lanes, [False] * lanes
+    error = torch.zeros_like(image)
+    hist = {"M_r": [], "Hu": [], "varu": []}
+    win = (bottom - top) * (right - left) * 3
+    active = list(range(lanes)) if iterations > 0 else []
+
+    while active:
+        kw = dict(step_factor=step_factor, lambd=lambd, blind=blind, correlation=correlation)
+        if len(active) == lanes:
+            u, psf, error, image = inner(u, image, psf, lanes, **kw)
+        else:  # the images that go on, folded; the others keep their state
+            ch = torch.tensor([chans * i + c for i in active for c in range(chans)], device=dev)
+            outs = inner(*(t.index_select(0, ch) for t in (u, image, psf)), len(active), **kw)
+            u, psf, error, image = (t.index_copy(0, ch, o)
+                                    for t, o in zip((u, psf, error, image), outs))
+        it = its[active[0]]
 
         if use_stopping:
-            m_r_new, m_r_prev_new, hit = whiteness_stop(
-                error, it, m_r, m_r_prev, window=window, weights=weights, blind=blind,
-                tau=tau)
-            flags = [hit]
-            if early_stop > 0.0 and not blind:
-                # whiteness-plateau stop (RLConfig.early_stop); the anchor
-                # only moves once a full threshold's improvement accumulated
-                improved = m_r_new < m_r_best * (1.0 - early_stop)
-                m_r_best = torch.where(improved, m_r_new, m_r_best)
-                flags.append(improved)
-            # the one host read of this outer iteration
+            err_w, at = whole(error, "image")
+            flags, per = [], 1 + (early_stop > 0.0 and not blind)
+            for i in active:
+                m_r_new, m_r_prev_new, hit = whiteness_stop(
+                    lane(err_w, i), it, m_r[i], m_r_prev[i], window=at, weights=weights,
+                    blind=blind, tau=tau)
+                flags.append(hit)
+                if per > 1:
+                    # whiteness-plateau stop (RLConfig.early_stop); the anchor
+                    # only moves once a full threshold's improvement accumulated
+                    improved = m_r_new < m_r_best[i] * (1.0 - early_stop)
+                    m_r_best[i] = torch.where(improved, m_r_new, m_r_best[i])
+                    flags.append(improved)
+                m_r[i], m_r_prev[i] = m_r_new, m_r_prev_new
+            # the one host read of this outer iteration; under a shard every
+            # rank reads the same flags, computed from the same gathered window
             flags = torch.stack(flags).tolist()
-            stop = it > 1 and flags[0]
-            if len(flags) > 1:
-                since_best = 0 if flags[1] else since_best + 1
-                stop = stop or (it > 1 and since_best >= early_stop_patience)
-            m_r, m_r_prev = m_r_new, m_r_prev_new
+            for j, i in enumerate(active):
+                stops[i] = it > 1 and flags[per * j]
+                if per > 1:
+                    since_best[i] = 0 if flags[per * j + 1] else since_best[i] + 1
+                    stops[i] = stops[i] or (it > 1 and since_best[i] >= early_stop_patience)
 
         if record:
-            u_win = u[:, top + pad : bottom - pad, left + pad : right - pad].float()
-            err_win = error[:, top:bottom, left:right].float()
-            hist["M_r"].append(m_r)
-            hist["Hu"].append(torch.sum(err_win**2) / win)
-            hist["varu"].append(torch.std(u_win, correction=0) ** 2)
-        it += 1
+            (u_w, at), (err_w, _) = whole(u, "u"), whole(error, "image")
+            t, b, l, r = at
+            hist["M_r"].append(m_r[0])
+            hist["Hu"].append(torch.sum(err_w[:, t:b, l:r].float() ** 2) / win)
+            hist["varu"].append(
+                torch.std(u_w[:, t + pad : b - pad, l + pad : r - pad].float(), correction=0) ** 2)
+        for i in active:
+            its[i] += 1
+        active = [i for i in active if its[i] < iterations and not stops[i]]
 
     u, psf, image, error = u.float(), psf.float(), image.float(), error.float()
-    stats = final_stats(it, stop, m_r, error, u, window=window, pad=pad)
-    u_out = _hwc(u[:, pad : pad + m, pad : pad + n])
+    (u_w, at), (err_w, _) = whole(u, "u"), whole(error, "image")
+    stats = [final_stats(its[i], stops[i], m_r[i], lane(err_w, i), lane(u_w, i), window=at,
+                         pad=pad) for i in range(lanes)]
+    stats = stats[0] if batch is None else torch.stack(stats)
+    rows = slice(pad, pad + m) if shard is None else shard.crop
+    u_out = _hwc(u[:, rows, pad : pad + n], batch)
     hist = {k: torch.stack(v) if v else torch.zeros(0, dtype=f32, device=dev)
             for k, v in hist.items()}
-    return u_out, _hwc(u), _hwc(psf), _hwc(image), stats, hist
+    return u_out, _hwc(u, batch), _hwc(psf, batch), _hwc(image, batch), stats, hist
+
+
+def _tv_lanes(a, epsilon, norm, method, collab, lanes):
+    """The solver's TV stencil (K5) of planar ``a``; with ``lanes`` > 1 the
+    channel coupling is taken within each image of the fold and broadcast
+    back to its channels."""
+    if lanes == 1 or not collab:
+        return tv_auto_planar(a, epsilon, 2, norm, method, collab)
+    mag, div = tv_auto_planar(a, epsilon, 2, norm, method, False)
+    per = mag.reshape(lanes, -1, *mag.shape[1:])
+    return _couple(per, collab, 1).expand_as(per).reshape(mag.shape), div
 
 
 def richardson_lucy_MM(

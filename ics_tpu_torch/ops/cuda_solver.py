@@ -41,7 +41,7 @@ def fits(u_m: int, u_n: int) -> bool:
 
 
 def inner_loop_ops(u, image, psf, *, step_factor, lambd, blind, correlation,
-                   conv, psf_grad, guard=False, mixed=False, tv=None):
+                   conv, psf_grad, guard=False, mixed=False, tv=None, lanes=1, shard=None):
     """One outer iteration's five inner iterations as separate tensor ops
     (ics_tpu/models/rl_mm.py:377-531).
 
@@ -55,11 +55,36 @@ def inner_loop_ops(u, image, psf, *, step_factor, lambd, blind, correlation,
     denoising of ``image``.  Returns (u', psf', error, image'): ``error`` is
     the last residual (post-update when blind), the one the whiteness
     metric reads.
+
+    ``lanes``: the channel axis holds that many images of three channels
+    each (a folded batch); the blind PSF step's maxima and projection are
+    taken per image.  ``shard`` (``parallel.tiling.RowShard``): ``u`` and
+    ``image`` are this rank's rows of a row-sharded solve; the convolutions
+    and stencils read halo rows from the neighbouring ranks, the maxima and
+    the PSF gradient are reduced over every rank.  ``None`` runs the
+    operations of a one-device solve.
     """
     _, u_m, u_n = u.shape
     _, m, n = image.shape
+    if shard is not None:
+        u_m, m = shard.u_rows, shard.rows
     mk = psf.shape[1]
     pad = (u_m - m) // 2
+    crop = (slice(None), slice(pad, pad + m) if shard is None else shard.crop,
+            slice(pad, pad + n))
+    if shard is None:
+        ext = own = lambda a: a
+        full = lambda e, k: conv(e, k, "full")
+        maxima = lambda *xs: [torch.amax(x, dim=(1, 2)) for x in xs]
+    else:
+        ext, own = shard.extend, shard.own
+        full = lambda e, k: shard.full(conv, e, k)
+        maxima = lambda *xs: list(shard.max(torch.stack([torch.amax(x, dim=(1, 2)) for x in xs])))
+    if lanes == 1:
+        lane_max = torch.amax
+    else:  # each image's maximum, on each of its channels
+        lane_max = lambda a: torch.amax(a.reshape(lanes, -1), dim=1).repeat_interleave(
+            a.shape[0] // lanes)[:, None, None]
     sf = torch.tensor(step_factor, dtype=torch.float32, device=u.device)
     inv_un = 1.0 / (u_m * u_n)
     ut = u
@@ -68,29 +93,31 @@ def inner_loop_ops(u, image, psf, *, step_factor, lambd, blind, correlation,
     lo = (lambda a: a.to(torch.bfloat16)) if mixed else (lambda a: a)
     hi = (lambda a: a.float()) if mixed else (lambda a: a)
     if tv is not None:
-        tv_ut_l1, _ = tv(ut, 1)
-        tv_ut_l2, _ = tv(ut, 2)
+        ut_x = ext(ut)
+        tv_ut_l1 = own(tv(ut_x, 1)[0])
+        tv_ut_l2 = own(tv(ut_x, 2)[0])
     error = None
     if mixed:
-        error = conv(u, psf, "valid") - image
+        error = conv(ext(u), psf, "valid") - image
         delta = torch.zeros_like(u)
     for _ in range(INNER_ITER):
         u_start = u
+        u_x = ext(u) if tv is not None or not mixed else None
         # 1. residual (mixed: by linearity, plus the increment's conv);
         # 2. correlate it with the PSF
         if mixed:
-            error = error + hi(conv(lo(delta), lo(psf), "valid"))
+            error = error + hi(conv(ext(lo(delta)), lo(psf), "valid"))
         else:
-            error = conv(u, psf, "valid") - image
-        gradu = hi(conv(lo(error), lo(psf_rot), "full"))
+            error = conv(u_x, psf, "valid") - image
+        gradu = hi(full(lo(error), lo(psf_rot)))
         # 3. TV stencils of u (order 2, as at the reference's call sites)
         if tv is not None:
-            tv_u_l1, _ = tv(u, 1)
-            tv_u_l2, div = tv(u, 2)
+            tv_u_l1 = own(tv(u_x, 1)[0])
+            tv_u_l2, div = map(own, tv(u_x, 2))
         # 4. depth-of-field weights from the raw correlation (no epsilon);
         # the guard keeps the observed pixel where the denominator is 0
         # and caps dof at 1
-        gcrop = gradu[:, pad : pad + m, pad : pad + n]
+        gcrop = gradu[crop]
         if guard:
             den = gcrop + image
             zero = den == 0.0
@@ -111,28 +138,29 @@ def inner_loop_ops(u, image, psf, *, step_factor, lambd, blind, correlation,
         else:
             greg = lambd * gradu + (u - ut) / 2.0
         # 6. per-channel step over the whole padded window
-        dt = sf * (torch.amax(u, dim=(1, 2)) + inv_un) / (
-            torch.amax(torch.abs(greg), dim=(1, 2)) + 1e-15
-        )
+        u_max, greg_max = maxima(u, torch.abs(greg))
+        dt = sf * (u_max + inv_un) / (greg_max + 1e-15)
         u = u - dt[:, None, None] * greg
         # 7. TV-denoise the observed image (use_tv only)
         if tv is not None:
             denoise = torch.where(live, reg, 0.0)
-            dt_img = sf * (torch.amax(image, dim=(1, 2)) + 1.0 / (m * n)) / (
-                torch.amax(torch.abs(denoise), dim=(1, 2)) + 1e-15
-            )
-            image = image - dt_img[:, None, None] * denoise[:, pad : pad + m, pad : pad + n] / lambd
+            image_max, denoise_max = maxima(image, torch.abs(denoise))
+            dt_img = sf * (image_max + 1.0 / (m * n)) / (denoise_max + 1e-15)
+            image = image - dt_img[:, None, None] * denoise[crop] / lambd
         # 8. keep the blurry image where deblurring failed (inner crop only)
-        crop = u[:, pad : pad + m, pad : pad + n]
-        u[:, pad : pad + m, pad : pad + n] = (1.0 - dof) * crop + dof * image
+        u[crop] = (1.0 - dof) * u[crop] + dof * image
         if blind:
-            # 9. PSF refinement from the post-update residual
-            error = conv(u, psf, "valid") - image
-            gradk = psf_grad(u, error)
-            dtpsf = sf / mk * (torch.amax(psf) + 1.0 / (u_m * u_n * 3)) / (
-                torch.amax(torch.abs(gradk)) + 1e-15
+            # 9. PSF refinement from the post-update residual; a shard's
+            # gradient is its rows' share, summed over the ranks
+            u_x = ext(u)
+            error = conv(u_x, psf, "valid") - image
+            gradk = psf_grad(u_x, error)
+            if shard is not None:
+                gradk = shard.sum(gradk)
+            dtpsf = sf / mk * (lane_max(psf) + 1.0 / (u_m * u_n * 3)) / (
+                lane_max(torch.abs(gradk)) + 1e-15
             )
-            psf = project_planar(psf - dtpsf * gradk, correlation)
+            psf = project_planar(psf - dtpsf * gradk, correlation, lanes)
             psf_rot = torch.flip(psf, dims=(1, 2)).contiguous()
         if mixed:
             delta = u - u_start

@@ -30,11 +30,14 @@ def rotate_180(array: torch.Tensor) -> torch.Tensor:
     return torch.flip(array, dims=(0, 1))
 
 
-def project_planar(psf: torch.Tensor, correlation: bool = False) -> torch.Tensor:
+def project_planar(psf: torch.Tensor, correlation: bool = False, lanes: int = 1) -> torch.Tensor:
     """A blind step's planar (C, MK, MK) PSF onto the simplex: the channel
     mean first when ``correlation`` (one PSF for every channel), then
-    ``normalize_kernel``'s clamp and per-channel rescale; contiguous."""
+    ``normalize_kernel``'s clamp and per-channel rescale; contiguous.
+    ``lanes``: the channels hold that many images' PSFs, each meaned on
+    its own."""
     if correlation:
-        psf = torch.mean(psf, dim=0, keepdim=True).expand_as(psf)
+        per = psf.reshape(lanes, -1, *psf.shape[1:])
+        psf = torch.mean(per, dim=1, keepdim=True).expand_as(per).reshape(psf.shape)
     psf = torch.clamp(psf, min=0.0)
     return (psf / torch.sum(psf, dim=(1, 2), keepdim=True)).contiguous()

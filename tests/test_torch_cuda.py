@@ -430,3 +430,63 @@ def test_metrics_keep_large_cuda_tensors_on_the_device():
     assert cuda_conv.launches == before + 2  # bands of 1159 and 35 output rows
     assert abs(got - ssim(a, b)) <= 1e-6
     assert abs(psnr(a.to(dev), b.to(dev)) - psnr(a, b)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_batched_vmap_fold_matches_map_on_gpu():
+    """'vmap' folds three crop-scale lanes into one K1 launch per conv: at a
+    fixed outer count each lane is within 1e-5 of its 'map' lane, and the
+    fold launches K1 as one lane's solve does (10 per outer), 'map' three
+    times that."""
+    from parallel_fixtures import lanes
+
+    from ics_tpu_torch.models.rl_mm import RLConfig
+    from ics_tpu_torch.parallel import batched_deconvolve
+
+    dev = _need_gpu()
+    images, us, psfs, box = lanes(5, 3, 129, 5)
+    # 'map' lanes on the op loop, as 'vmap' runs (K2 would take this window)
+    kw = dict(iterations=6, tau=1e9, blind=False, device=dev,
+              config=RLConfig(inner_loop="xla"))
+    outs = {}
+    for schedule in ("map", "vmap"):
+        before = cuda_conv.launches
+        outs[schedule] = batched_deconvolve(images, us, psfs, *box, schedule=schedule, **kw)
+        outs[schedule + " K1"] = cuda_conv.launches - before
+    assert outs["vmap K1"] == 10 * 6 and outs["map K1"] == 3 * 10 * 6
+    assert torch.equal(outs["vmap"][2][:, 0], outs["map"][2][:, 0])
+    assert float((outs["vmap"][0] - outs["map"][0]).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_on_gpu():
+    """One NCCL rank (the card's machine has one GPU): the backend is NCCL
+    without asking, and the row-sharded solve over a one-rank mesh matches
+    the one-device solve."""
+    import socket
+
+    import torch.distributed as dist
+
+    from parallel_fixtures import lanes
+
+    from ics_tpu_torch.models.rl_mm import richardson_lucy_MM
+    from ics_tpu_torch.parallel import initialize, make_mesh, sharded_richardson_lucy
+
+    dev = _need_gpu()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        images, us, psfs, box = lanes(6, 1, 95, 5)
+        kw = dict(iterations=4, blind=True, step_factor=1e-3, lambd=1000.0)
+        got = sharded_richardson_lucy(images[0], us[0], psfs[0], *box, 0.0, mesh=make_mesh(1),
+                                      **kw)
+        want = richardson_lucy_MM(images[0], us[0], psfs[0], *box, 0.0, device=dev,
+                                  config=None, **kw)
+        assert float((got.u - want.u).abs().max()) <= 5e-5
+        assert float((got.psf - want.psf).abs().max()) <= 5e-6
+        assert got.iterations == want.iterations
+    finally:
+        dist.destroy_process_group()

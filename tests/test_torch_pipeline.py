@@ -132,15 +132,16 @@ def test_same_value_errors_as_jax(kw, match):
 
 
 @pytest.mark.parametrize(
-    "kw",
+    "kw,error",
     [
-        dict(display=True),
-        dict(mesh=object()),
+        (dict(display=True), NotImplementedError),
+        # mesh is ported (ROADMAP item 11): it takes a torch DeviceMesh
+        (dict(mesh=object()), TypeError),
     ],
 )
-def test_unported_options_raise(kw):
+def test_unported_options_raise(kw, error):
     kw = {"dest_path": None, **kw}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         _quiet(ics_tpu_torch.deblur_module, FIXTURE, "x", blur_width=3,
                mask_size=31, iterations=1, verbose=False, device="cpu", **kw)
 
