@@ -2,23 +2,29 @@
 """Smoke run of the ``ics_tpu_torch`` port on one NVIDIA GPU.
 
     python3 chip_smoke.py     # one GPU, a few minutes with the kernel build
+    python3 chip_smoke.py --deblur-batch-against DIR
+        # the CLI deblur-batch's wall from the checkout DIR against this one
 
 Phases:
   1. probe: the card and its driver (nvidia-smi), torch.version.cuda, nvcc,
      kernel build;
-  2. each hand-written kernel (K1 conv, K2 inner loop, K3 PSF gradient, K4s
+  2. ``ics_tpu_torch.utils.selftest.certify_kernels``: each
+     hand-written kernel (K1 conv, K2 inner loop, K3 PSF gradient, K4s
      split and K4 bf16 tensor-core convs, K5 TV stencil, K6 bilateral
      filter) against its plain PyTorch twin on the card, at its path's
      shapes, with CUDA-event median times of both and of the one PyTorch
      call that computes the same function where there is one, taken in
      turns (the kernel's also as device time alone, ``device_ms``); every
      kernel runs twice, the card synchronized after each call so that a
-     fault names its kernel, and must be bitwise equal; K2 also
-     runs at the op loop's 24 MP windows beside the op loop (informational).  Each kernel's bound
-     (the least time the card could take: bytes over 3.35 TB/s or operations
-     over the peak rate of their type, whichever is larger) is computed
-     from the shapes (K6's also counts the exponentials the function needs
-     at the SFU's rate);
+     fault names its kernel and call, and must be bitwise equal; K2 also
+     runs at the op loop's 24 MP windows beside the op loop
+     (informational); then the K2 inner loop against the op loop on a
+     255^2 blind solve, and the pipeline's pre- and postprocess and cubic
+     resize against one op at a time.  Each kernel's bound (the least time
+     the card could take: bytes over 3.35 TB/s or operations over the peak
+     rate of their type, whichever is larger) is computed from the shapes
+     (K6's also counts the exponentials the function needs at the SFU's
+     rate);
   3. the crop-scale pipeline on CUDA against the same pipeline on the CPU
      (SSIM of the uint16 outputs), in exact, mixed, high, fast, use_tv
      under each tv_norm, and with the TV-PAM and TV-PD solvers;
@@ -63,7 +69,21 @@ Phases:
      24 MP final level's shape, 10 outers, against one device (u 5e-5,
      stats 1e-6) and bitwise reproducible, then with a mask window in the
      second rank's rows only; (e) ``deblur --shard 1`` at 1.9
-     MP, SSIM >= 0.999 against phase 4.
+     MP, SSIM >= 0.999 against phase 4;
+  8. the host tier, the batteries and the examples: (a) the native runtime
+     (``ics_tpu_torch.runtime``) built at first use; its LZW and PackBits
+     coders on the 24 MP scene as 16-bit RGB, bytes equal to the
+     pure-Python coders' (which run in four worker processes meanwhile)
+     and decoding back, both timed; ``imread_sequence`` of phase 7's four
+     TIFFs with and without the prefetcher, on cached files and on files
+     dropped from the page cache (equal arrays, both walls); the
+     CLI ``bilateral`` at 24 MP with the TIFF read, the filter and the
+     TIFF write timed apart; (b) ``utils.selftest``'s success battery (12
+     finite rows), the 24 MP precision-quality battery (finite scores,
+     outers per mode), the conv bench and the scaling bench on one NCCL
+     rank, the counters zeroed before each; (c) the four examples
+     (``ics_tpu_torch.examples``) on a 512^2 scene TIFF, each output a
+     uint16 TIFF of the expected shape.
 
 SSIM comes from ``ics_tpu_torch.utils.metrics``; every pass/fail comparison
 computes it on the CPU, so the yardstick is independent of the kernels.
@@ -78,11 +98,16 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+# the scenes, the CUDA-event timer and phase 2's kernel certification
+from ics_tpu_torch.utils import selftest
+from ics_tpu_torch.utils.selftest import make_scene
 
 
 class SmokeFailure(Exception):
@@ -95,432 +120,23 @@ def _require(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def _median_ms(torch, fn, reps: int, device_only: bool = False) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, after a warm-up,
-    the GPU idle at each start event: a call shorter than its wrapper's host
-    time reads that host time.  With ``device_only``, a 0.1 ms sleep kernel
-    ahead of each start event keeps the GPU busy while the host enqueues the
-    call, so the time is the call's device time alone."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if device_only:
-            torch.cuda._sleep(200_000)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def _time_turns(torch, kernel, plain, lib, reps: int):
-    """(kernel ms, plain ms, library ms or None, kernel device ms), timed in
-    turns plain, lib, kernel, kernel device, kernel device, kernel, lib,
-    plain; each the mean of its two medians."""
-    p1 = _median_ms(torch, plain, reps)
-    l1 = _median_ms(torch, lib, reps) if lib else None
-    k1 = _median_ms(torch, kernel, reps)
-    d1 = _median_ms(torch, kernel, reps, device_only=True)
-    d2 = _median_ms(torch, kernel, reps, device_only=True)
-    k2 = _median_ms(torch, kernel, reps)
-    l2 = _median_ms(torch, lib, reps) if lib else None
-    p2 = _median_ms(torch, plain, reps)
-    return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2 if lib else None, (d1 + d2) / 2
-
-
-# NVIDIA H100 SXM data sheet: HBM3 rate, dense peaks without sparsity
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
-# the SFU (ex2 and the other MUFU operations): 16 per clock per SM on
-# compute capability 9.0 (NVIDIA's CUDA C++ documentation, the table of
-# arithmetic instruction throughput), at the clock the f32 peak implies (67e12 / (132 SMs x 128
-# lanes x 2)): 132 x 16 x 1.98 GHz
-SFU_OPS_PER_S = 67e12 / 16
-
-
-def _bound(nbytes: float, ops: float, kind: str, sfu: float = 0.0) -> dict:
-    """The least time the card could take: the larger of the bytes over the
-    memory rate, the operations over the peak rate of their type and the
-    SFU operations over the SFU's rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / PEAK_OPS_PER_S[kind], sfu / SFU_OPS_PER_S) * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
-
-
-def _gauss_taps(blur: int) -> np.ndarray:
-    """The scenes' 1-D Gaussian blur of width ``blur`` (sigma blur/4), summing
-    to 1."""
-    n = np.arange(blur, dtype=np.float64) - (blur - 1) / 2.0
-    k1 = np.exp(-0.5 * (n / (blur / 4.0)) ** 2)
-    return k1 / k1.sum()
-
-
-def make_scene(h: int, w: int, blur: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
-    """A structured synthetic frame (blocks, edges, gradients, texture, kept
-    in [0.15, 0.9]), blurred by a Gaussian PSF of width ``blur`` plus small
-    noise.  Returns (sharp float32 in [0, 1], blurred uint8).
-
-    Never uniform noise: the epsilon-free DoF blend is chaotic on it.
-    """
-    from scipy.ndimage import convolve1d
-
-    rng = np.random.default_rng(seed)
-    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
-    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :, None]
-    tint = rng.uniform(-0.1, 0.1, (1, 1, 3)).astype(np.float32)
-    img = 0.35 + 0.25 * xx + 0.15 * yy + tint + np.zeros((h, w, 3), np.float32)
-    for _ in range(120):  # blocks with sharp edges
-        bh, bw = rng.integers(h // 40, h // 6), rng.integers(w // 40, w // 6)
-        y0, x0 = rng.integers(0, h - bh), rng.integers(0, w - bw)
-        img[y0 : y0 + bh, x0 : x0 + bw] += rng.uniform(-0.25, 0.25, 3).astype(np.float32)
-    # texture: a stripe pattern plus blocky low-resolution noise
-    stripes = 0.04 * np.sin(2 * np.pi * (xx * w / 37.0 + yy * h / 53.0))
-    cells = rng.uniform(-0.05, 0.05, (h // 8 + 1, w // 8 + 1, 3)).astype(np.float32)
-    img += stripes + np.kron(cells, np.ones((8, 8, 1), np.float32))[:h, :w]
-    sharp = np.clip(img, 0.15, 0.9).astype(np.float32)
-    k1 = _gauss_taps(blur)
-    blurred = convolve1d(convolve1d(sharp, k1, axis=0, mode="nearest"), k1, axis=1, mode="nearest")
-    blurred += rng.normal(0.0, 0.002, blurred.shape).astype(np.float32)
-    return sharp, (np.clip(blurred, 0.0, 1.0) * 255.0).round().astype(np.uint8)
-
-
 # ---------------------------------------------------------------- phase 2
-REL_TOL = 1e-5  # max |kernel - twin| / max |twin|; the sum order differs
+def phase_kernels(dev) -> dict:
+    """``certify_kernels``: K1-K6 against their twins at the 24
+    MP path's shapes (each call twice, the card synchronized after each),
+    the K2 inner loop against the op loop, the glue against one op at a
+    time.  The first failure, or the kernel and call that raised, fails the
+    smoke."""
+    rows, failures = {}, []
 
+    def report(line: str) -> None:
+        print(line, flush=True)
+        if line.startswith(("[selftest] FAIL", "[selftest] ERROR")):
+            failures.append(line)
 
-def _rel(torch, got, ref) -> tuple[float, float]:
-    err = float(torch.max(torch.abs(got.float() - ref.float())))
-    return err, err / max(float(torch.max(torch.abs(ref.float()))), 1e-30)
-
-
-LIB_TOL = 1e-3  # the library call against the twin: cuDNN picks its own algorithm
-
-
-def _lib_agrees(torch, label: str, got, ref) -> None:
-    """The library call that is timed beside a kernel computes its function."""
-    _, rel = _rel(torch, got, ref)
-    print(f"{label}: library call rel {rel:.3e} against the twin")
-    _require(rel <= LIB_TOL, f"{label}: the library call computes the same function")
-
-
-def _twice(torch, label: str, fn) -> list:
-    """Two calls of a kernel's wrapper, the card synchronized before the
-    first and after each: CUDA reports a kernel's fault at a later call, so
-    this names the kernel (or the work before it) that faulted."""
-    outs = []
-    for stage in ("the inputs", "the first call", "the second call"):
-        try:
-            if stage != "the inputs":
-                outs.append(fn())
-            torch.cuda.synchronize()
-        except Exception as exc:
-            raise SmokeFailure(f"{label}, {stage}: {type(exc).__name__}: {exc}") from exc
-    return outs
-
-
-def _ulps(torch, got, ref) -> float:
-    """Largest |got - ref| in bf16 ulps of each (positive) ref value."""
-    ref = ref.float()
-    ulp = torch.exp2(torch.floor(torch.log2(ref)) - 7)
-    return float(torch.max(torch.abs(got.float() - ref) / ulp))
-
-
-def phase_kernels(torch, dev, rng) -> dict:
-    from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
-                                   cuda_solver, cuda_tv)
-
-    rows = {}
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
-
-    def window(m, mk):
-        img = rng.uniform(0.2, 0.8, (3, m // 8 + 1, m // 8 + 1))
-        img = np.kron(img, np.ones((1, 8, 8)))[:, :m, :m]
-        pad = mk // 2
-        u = np.pad(img, ((0, 0), (pad, pad), (pad, pad)), mode="edge")
-        psf = rng.uniform(0.5, 1.0, (3, mk, mk))
-        return t(img), t(u), t(psf / psf.sum(axis=(1, 2), keepdims=True))
-
-    F = torch.nn.functional
-
-    def lib_conv(a, k):
-        """One grouped cuDNN convolution of the same function, valid mode
-        (TF32 is off: exact_f32 in main)."""
-        return lambda: F.conv2d(a[None], torch.flip(k, (1, 2))[:, None], groups=a.shape[0])
-
-    def conv_bound(shape, mk, itemsize, kind, products=1):
-        c, h, w = shape
-        ho, wo = h - mk + 1, w - mk + 1
-        nbytes = itemsize * (c * h * w + c * mk * mk + c * ho * wo)
-        return _bound(nbytes, products * 2 * mk * mk * c * ho * wo, kind)
-
-    # K1 at the 24 MP non-blind shapes and the 0.707 blind window
-    k1_err = 0.0
-    for label, shape, mk, mode, reps in [
-        ("24MP 9x9 valid", (3, 4012, 6012), 9, "valid", 5),
-        ("24MP 9x9 full", (3, 4004, 6004), 9, "full", 5),
-        ("369^2 7x7 valid", (3, 369, 369), 7, "valid", 20),
-        ("363^2 7x7 full", (3, 363, 363), 7, "full", 20),
-    ]:
-        a = torch.rand(shape, dtype=torch.float32, device=dev) * 0.75 + 0.15
-        k = t(rng.uniform(0.0, 1.0, (3, mk, mk)))
-        got, again = _twice(torch, f"K1 {label}", lambda: cuda_conv.conv_planar(a, k, mode))
-        ref = cuda_conv.conv_planar_plain(a, k, mode)
-        err, rel = _rel(torch, got, ref)
-        k1_err = max(k1_err, err)
-        first = label == "24MP 9x9 valid"
-        ms, plain, lib, dev_ms = _time_turns(
-            torch, lambda: cuda_conv.conv_planar(a, k, mode),
-            lambda: cuda_conv.conv_planar_plain(a, k, mode),
-            lib_conv(a, k) if first else None, reps,
-        )
-        print(f"K1 {label}: max_abs_err {err:.3e} rel {rel:.3e}; "
-              f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain:.4f} ms"
-              + (f", library conv2d {lib:.4f} ms" if first else ""))
-        _require(rel <= REL_TOL, f"K1 {label} within {REL_TOL:g} of its twin")
-        _require(torch.equal(got, again), f"K1 {label} bitwise reproducible")
-        if first:
-            _lib_agrees(torch, f"K1 {label}", lib_conv(a, k)()[0], ref)
-            rows["K1"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
-                              **conv_bound(shape, mk, 4, "f32"))
-        del a, got, again, ref
-    rows["K1"]["max_abs_err"] = k1_err
-
-    # K2 at the 1.9 MP finest blind window (262^2, mk 7) and the 24 MP
-    # 0.5 window (261^2, mk 5)
-    k2_err = 0.0
-    for m, mk in [(256, 7), (257, 5)]:
-        img, u0, psf = window(m, mk)
-        for blind, corr in [(False, False), (True, False), (True, True)]:
-            kw = dict(step_factor=1e-3, lambd=1e4, blind=blind, correlation=corr)
-            tag = f"{m + mk - 1}^2 mk {mk} blind={blind} corr={corr}"
-            (u1, p1, e1), (u2, p2, e2) = _twice(
-                torch, f"K2 {tag}",
-                lambda: cuda_solver.inner_loop_planar(u0.clone(), img, psf, **kw))
-            ur, pr, er = cuda_solver.inner_loop_plain(u0.clone(), img, psf, **kw)
-            eu, ru = _rel(torch, u1, ur)
-            ep, rp = _rel(torch, p1, pr)
-            ee = float(torch.max(torch.abs(e1 - er)))
-            re = ee / float(torch.max(torch.abs(img)))
-            k2_err = max(k2_err, eu, ep)
-            print(f"K2 {tag}: u {eu:.3e} (rel {ru:.3e}), psf {ep:.3e} "
-                  f"(rel {rp:.3e}), err {ee:.3e} (rel to image {re:.3e})")
-            _require(max(ru, rp, re) <= REL_TOL, f"K2 {tag} within {REL_TOL:g} of its twin")
-            _require(
-                torch.equal(u1, u2) and torch.equal(p1, p2) and torch.equal(e1, e2),
-                f"K2 {tag} bitwise reproducible",
-            )
-            if (m, blind, corr) == (256, True, False):
-                uk = u0.clone()
-                ms, plain, _, dev_ms = _time_turns(
-                    torch, lambda: cuda_solver.inner_loop_planar(uk, img, psf, **kw),
-                    lambda: cuda_solver.inner_loop_plain(u0, img, psf, **kw), None, 20,
-                )
-                print(f"K2 {tag}: kernel {ms:.4f} ms (device {dev_ms:.4f}), "
-                      f"plain {plain:.4f} ms per outer")
-                # five blind inner steps: four convolutions each (residual,
-                # correlation, fresh residual, PSF-gradient dots) and about
-                # 10 operations per image pixel and 9 per window pixel;
-                # u, image and psf read once, u, psf and the error written
-                c, um, un = u0.shape
-                n_img, n_u = c * m * m, c * um * un
-                ops = 5 * (4 * 2 * mk * mk * n_img + 10 * n_img + 9 * n_u)
-                nbytes = 4 * (2 * n_u + 2 * n_img + 2 * c * mk * mk)
-                rows["K2"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=None,
-                                  **_bound(nbytes, ops, "f32"))
-    rows["K2"]["max_abs_err"] = k2_err
-
-    # K2 called directly at the 24 MP op-loop windows (369^2 mk 7, 520^2 mk
-    # 9), beside the op loop's time per outer there (K1 and K3 with torch
-    # elementwise passes): informational, the solver keeps the JAX bound
-    from functools import partial
-
-    from ics_tpu_torch.ops.conv import conv_planar
-
-    for m, mk in [(363, 7), (512, 9)]:
-        img, u0, psf = window(m, mk)
-        kw = dict(step_factor=1e-3, lambd=1e4, blind=True, correlation=False)
-        u1, p1, _ = cuda_solver.inner_loop_planar(u0.clone(), img, psf, **kw)
-        ur, pr, _ = cuda_solver.inner_loop_plain(u0.clone(), img, psf, **kw)
-        uk = u0.clone()
-        ops_kw = dict(conv=partial(conv_planar, precision="exact"),
-                      psf_grad=cuda_correlate.psf_gradient_planar, **kw)
-        ms, ops_ms, _, _ = _time_turns(
-            torch, lambda: cuda_solver.inner_loop_planar(uk, img, psf, **kw),
-            lambda: cuda_solver.inner_loop_ops(u0, img, psf, **ops_kw), None, 10,
-        )
-        print(f"K2 direct {m + mk - 1}^2 mk {mk} blind (informational, outside the JAX "
-              f"window bound): kernel {ms:.4f} ms per outer, op loop {ops_ms:.4f} ms per "
-              f"outer; u rel {_rel(torch, u1, ur)[1]:.3e}, psf rel {_rel(torch, p1, pr)[1]:.3e}")
-
-    # K3 at the 24 MP 0.707 and 1.0 blind windows
-    k3_err = 0.0
-    for m, mk in [(363, 7), (512, 9)]:
-        img, u, psf = window(m, mk)
-        err_t = cuda_conv.conv_planar_plain(u, psf, "valid") - img
-        tag = f"{m + mk - 1}^2 mk {mk}"
-        got, again = _twice(torch, f"K3 {tag}",
-                            lambda: cuda_correlate.psf_gradient_planar(u, err_t))
-        ref = cuda_correlate.psf_gradient_plain(u, err_t)
-        err, rel = _rel(torch, got, ref)
-        k3_err = max(k3_err, err)
-        # the library call: one grouped convolution with the error window as
-        # the weight (a cross-correlation), then the flip
-        lib_fn = lambda: torch.flip(
-            F.conv2d(u[None], err_t[:, None], groups=3)[0], (1, 2))
-        ms, plain, lib, dev_ms = _time_turns(
-            torch, lambda: cuda_correlate.psf_gradient_planar(u, err_t),
-            lambda: cuda_correlate.psf_gradient_plain(u, err_t),
-            lib_fn if mk == 9 else None, 20,
-        )
-        nbytes = 4 * (u.numel() + err_t.numel() + 3 * mk * mk)
-        bound = _bound(nbytes, 2 * mk * mk * err_t.numel(), "f32")
-        print(f"K3 {tag}: max_abs_err {err:.3e} rel {rel:.3e}; "
-              f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain:.4f} ms, "
-              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})"
-              + (f", library conv2d {lib:.4f} ms" if mk == 9 else ""))
-        _require(rel <= REL_TOL, f"K3 {tag} within {REL_TOL:g} of its twin")
-        _require(torch.equal(got, again), f"K3 {tag} bitwise reproducible")
-        if mk == 9:
-            _lib_agrees(torch, f"K3 {tag}", lib_fn(), ref)
-            rows["K3"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
-                              **bound)
-    rows["K3"]["max_abs_err"] = k3_err
-
-    # K4s and K4 at the 24 MP non-blind shapes, the 520^2 op-loop window
-    # (what K4s takes under 'high'), the 369^2 7x7 window and a plane of odd
-    # width (a pyramid level's size; K4 stages it with plain loads)
-    for name in ("K4s", "K4"):
-        worst = 0.0
-        for label, shape, mk, mode, reps in [
-            ("24MP 9x9 valid", (3, 4012, 6012), 9, "valid", 5),
-            ("24MP 9x9 full", (3, 4004, 6004), 9, "full", 5),
-            ("520^2 9x9 valid", (3, 520, 520), 9, "valid", 20),
-            ("369^2 7x7 valid", (3, 369, 369), 7, "valid", 20),
-            ("odd width 2837x4251 9x9 full", (3, 2837, 4251), 9, "full", 5),
-        ]:
-            a = torch.rand(shape, dtype=torch.float32, device=dev) * 0.75 + 0.15
-            k = t(rng.uniform(0.05, 1.0, (3, mk, mk)))
-            if name == "K4s":
-                kern, plain = cuda_conv_mma.conv_split, cuda_conv_mma.conv_split_plain
-            else:
-                a, k = a.bfloat16(), k.bfloat16()
-                kern, plain = cuda_conv_mma.conv_bf16, cuda_conv_mma.conv_bf16_plain
-            got, again = _twice(torch, f"{name} {label}", lambda: kern(a, k, mode))
-            ref = plain(a, k, mode)
-            err, rel = _rel(torch, got, ref)
-            first = label == "24MP 9x9 valid"
-            ms, plain_ms, lib, dev_ms = _time_turns(torch, lambda: kern(a, k, mode),
-                                                    lambda: plain(a, k, mode),
-                                                    lib_conv(a, k) if first else None, reps)
-            if name == "K4s":
-                bound = f"within {REL_TOL:g} of its twin"
-                ok = rel <= REL_TOL
-                detail = f"rel {rel:.3e}"
-            else:
-                ulps = _ulps(torch, got, ref)
-                bound = "within one bf16 ulp of its twin"
-                ok = ulps <= 1.0
-                detail = f"{ulps:.2f} bf16 ulp"
-            print(f"{name} {label}: max_abs_err {err:.3e} {detail}; "
-                  f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms"
-                  + (f", library conv2d {lib:.4f} ms" if first else ""))
-            _require(ok, f"{name} {label} {bound}")
-            _require(torch.equal(got, again), f"{name} {label} bitwise reproducible")
-            worst = max(worst, err)
-            if first:
-                # K4s: three bf16 products of the f32 operands' halves
-                # (the function is the f32 conv); K4: one, on bf16 operands
-                itemsize, products = (4, 3) if name == "K4s" else (2, 1)
-                rows[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib,
-                                  **conv_bound(shape, mk, itemsize, "bf16", products))
-            del a, got, again, ref
-        rows[name]["max_abs_err"] = worst
-
-    # K5 at the 24 MP non-blind frame, every (order, norm), and bf16 once
-    worst = 0.0
-    u = torch.rand((3, 4001, 6001), dtype=torch.float32, device=dev) * 0.75 + 0.15
-    for order, norm, dtype in [(2, 1, torch.float32), (2, 2, torch.float32),
-                               (1, 1, torch.float32), (1, 2, torch.float32),
-                               (2, 2, torch.bfloat16)]:
-        x = u.to(dtype)
-        tag = f"24MP order {order} L{norm} {str(dtype).split('.')[-1]}"
-        got, again = _twice(torch, f"K5 {tag}", lambda: cuda_tv.tv_planar(x, 1e-6, order, norm))
-        ref = cuda_tv.tv_planar_plain(x, 1e-6, order, norm)
-        errs = [_rel(torch, g, r) for g, r in zip(got, ref)]
-        err, rel = max(e for e, _ in errs), max(r for _, r in errs)
-        ms, plain_ms, _, dev_ms = _time_turns(
-            torch, lambda: cuda_tv.tv_planar(x, 1e-6, order, norm),
-            lambda: cuda_tv.tv_planar_plain(x, 1e-6, order, norm), None, 5)
-        bitwise = all(torch.equal(g, r) for g, r in zip(got, ref))
-        print(f"K5 {tag}: max_abs_err {err:.3e} rel {rel:.3e} (bitwise equal to twin: "
-              f"{bitwise}); kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms")
-        _require(rel <= REL_TOL, f"K5 {tag} within {REL_TOL:g} of its twin")
-        _require(all(torch.equal(g, h) for g, h in zip(got, again)),
-                 f"K5 {tag} bitwise reproducible")
-        worst = max(worst, err)
-        if (order, norm, dtype) == (2, 2, torch.float32):
-            # order 2, L2: about 31 operations per interior pixel; one read,
-            # two writes
-            rows["K5"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
-                              **_bound(4 * 3 * x.numel(), 31 * x.numel(), "f32"))
-        del x, got, again, ref
-    rows["K5"]["max_abs_err"] = worst
-    del u
-
-    # K6 at one 24 MP plane (the CLI's bilateral filters each channel), a
-    # 3-plane crop, a 24 MP L plane on the 0-100 scale (bilateral-lab) and a
-    # plane smaller than 2r+1 on a side; std_s 5.0, the CLI default
-    worst = 0.0
-    for label, shape, radius, std_i, scale, reps in [
-        ("24MP plane r5", (1, 4000, 6000), 5, 0.1, 1.0, 3),
-        ("3x257x263 r2", (3, 257, 263), 2, 0.1, 1.0, 0),
-        ("24MP L plane r5 std_i 5", (1, 4000, 6000), 5, 5.0, 100.0, 0),
-        ("7x4 plane r5", (1, 7, 4), 5, 0.1, 1.0, 0),
-    ]:
-        x = torch.rand(shape, dtype=torch.float32, device=dev) * scale
-        args = (radius, std_i, 5.0)
-        got, again = _twice(torch, f"K6 {label}",
-                            lambda: cuda_bilateral.bilateral_planar(x, *args))
-        ref = cuda_bilateral.bilateral_planar_plain(x, *args)
-        err, rel = _rel(torch, got, ref)
-        line = f"K6 {label}: max_abs_err {err:.3e} rel {rel:.3e}"
-        if reps:
-            ms, plain_ms, _, dev_ms = _time_turns(
-                torch, lambda: cuda_bilateral.bilateral_planar(x, *args),
-                lambda: cuda_bilateral.bilateral_planar_plain(x, *args), None, reps,
-            )
-            line += f"; kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms"
-            # per pixel and offset: difference, square, scale, exp, two
-            # products, multiply-add (2) and add; one division per pixel.
-            # The exponentials the function needs go to the SFU: the
-            # centre's weight is 1 and w(p, d) = w(p + d, -d), so
-            # (offsets - 1) / 2 per pixel
-            offsets = (2 * radius + 1) ** 2
-            nbytes, ops = 8 * x.numel(), (9 * offsets + 1) * x.numel()
-            exps = (offsets - 1) // 2 * x.numel()
-            rows["K6"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
-                              **_bound(nbytes, ops, "f32", sfu=exps))
-            f32_ms = ops / PEAK_OPS_PER_S["f32"] * 1e3
-            sfu_ms, one_each_ms = (e / SFU_OPS_PER_S * 1e3
-                                   for e in (exps, offsets * x.numel()))
-            line += (f"; bound {rows['K6']['bound_ms']:.4f} ms ({rows['K6']['bound_by']}; "
-                     f"{rows['K6']['bound_ms'] / ms:.1%} of it): f32 operations "
-                     f"{f32_ms:.4f} ms, SFU {sfu_ms:.4f} ms at {(offsets - 1) // 2} "
-                     f"exponentials per pixel ({one_each_ms:.4f} ms at one per offset, "
-                     f"as this kernel computes them)")
-        print(line)
-        _require(rel <= REL_TOL, f"K6 {label} within {REL_TOL:g} of its twin")
-        _require(torch.equal(got, again), f"K6 {label} bitwise reproducible")
-        worst = max(worst, err)
-        del x, got, again, ref
-    rows["K6"]["max_abs_err"] = worst
+    ok = selftest.certify_kernels(report=report, device=dev, rows=rows)
+    _require(ok and not failures,
+             "certify_kernels: " + (failures[0] if failures else "every check passed"))
     return rows
 
 
@@ -702,7 +318,8 @@ def prime_fft_times(torch, dev) -> None:
     g = torch.Generator(device=dev).manual_seed(7)
     for shape in ((3, 4003, 6003), (3, 4000, 6000)):
         x = torch.rand(shape, generator=g, device=dev)
-        fft_ms = _median_ms(torch, lambda: torch.fft.irfft2(torch.fft.rfft2(x), s=shape[1:]), 5)
+        fft_ms = selftest._median_ms(
+            torch, lambda: torch.fft.irfft2(torch.fft.rfft2(x), s=shape[1:]), 5)
         print(f"cuFFT rfft2 + irfft2 f32 {'x'.join(map(str, shape))}: {fft_ms:.3f} ms")
         del x
 
@@ -864,7 +481,7 @@ def phase_cli(pic19, outs19, pic24) -> dict:
 def _gauss_psf(blur: int) -> np.ndarray:
     """``make_scene``'s Gaussian PSF of width ``blur``, as a (blur, blur, 3)
     kernel."""
-    k1 = _gauss_taps(blur)
+    k1 = selftest._gauss_taps(blur)
     return np.dstack([np.outer(k1, k1)] * 3).astype(np.float32)
 
 
@@ -987,7 +604,7 @@ def _mesh_rank(rank: int, port: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def phase_parallel(torch, dev, pic19, out19, pic24, exact24) -> None:
+def phase_parallel(torch, dev, pic19, out19, pic24, exact24, burst_dir: str) -> None:
     """7. batching and many ranks: (a) a burst of four 24 MP frames through
     batched_deconvolve, 'map' and 'vmap'; (b) the CLI deblur-batch on them,
     alone and with --shard 1 (one NCCL rank); (c) the 24 MP deblur_module
@@ -1014,14 +631,14 @@ def phase_parallel(torch, dev, pic19, out19, pic24, exact24) -> None:
 
         # (b) the CLI on the same frames, TIFF in and out
         for i, frame in enumerate(frames):
-            imsave(os.path.join(tmp, f"burst{i}.tif"), frame)
+            imsave(os.path.join(burst_dir, f"burst{i}.tif"), frame)
         del frames
         ckpt = os.path.join(tmp, "psf.npz")
         save_checkpoint(ckpt, SolverCheckpoint(psf=psf, blur_width=9))
         outs = {}
         for extra in ([], ["--shard", "1"]):
             dest = os.path.join(tmp, f"batch{len(extra)}")
-            wall, counts = _cli(["deblur-batch", os.path.join(tmp, "burst*.tif"), dest, "--psf",
+            wall, counts = _cli(["deblur-batch", os.path.join(burst_dir, "burst*.tif"), dest, "--psf",
                                  ckpt, "--mask-size", "511", *extra])
             outs[len(extra)] = np.stack([imread(os.path.join(dest, f"burst{i}-deblurred.tif"))
                                          for i in range(4)])
@@ -1104,6 +721,307 @@ def phase_parallel(torch, dev, pic19, out19, pic24, exact24) -> None:
     print(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 8
+def _python_coder(task: str, data: bytes, expected: int) -> tuple[str, float, int]:
+    """One pure-Python TIFF coder call in a worker process: (sha256 of its
+    output, seconds, output bytes)."""
+    import hashlib
+
+    from ics_tpu_torch.utils import io as tio
+
+    coder = {"lzw encode": tio._encode_lzw_py, "packbits encode": tio._encode_packbits_py,
+             "lzw decode": tio._decode_lzw_py, "packbits decode": tio._decode_packbits_py}[task]
+    t0 = time.perf_counter()
+    out = coder(data, expected) if task.endswith("decode") else coder(data)
+    seconds = time.perf_counter() - t0
+    return hashlib.sha256(out).hexdigest(), seconds, len(out)
+
+
+def _native_coders(frame16: np.ndarray, pool):
+    """(a) The native LZW and PackBits coders on the 24 MP scene as 16-bit
+    RGB, timed; starts the pure-Python coders on the same bytes in ``pool``
+    (four worker processes, one core each) and returns a function that
+    checks their bytes against the native ones."""
+    import hashlib
+
+    from ics_tpu_torch.runtime import codecs, loader
+
+    _require(codecs.available() and loader.available(),
+             "native runtime: codecs.available() and loader.available()")
+    data = frame16.astype("<u2").tobytes()
+    native = {}
+    for coder in ("lzw", "packbits"):
+        t0 = time.perf_counter()
+        enc = getattr(codecs, f"encode_{coder}")(data)
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dec = getattr(codecs, f"decode_{coder}")(enc, len(data))
+        t_dec = time.perf_counter() - t0
+        print(f"native {coder} 24MP 16-bit RGB ({len(data)} bytes): encode {t_enc:.3f} s "
+              f"({len(enc)} bytes), decode {t_dec:.3f} s")
+        _require(dec == data, f"native {coder} decodes the 24 MP frame back")
+        native[coder] = (enc, hashlib.sha256(enc).hexdigest())
+    want = hashlib.sha256(data).hexdigest()
+    jobs = {
+        task: pool.apply_async(_python_coder, (task, native[task.split()[0]][0]
+                                               if "decode" in task else data, len(data)))
+        for task in ("lzw encode", "lzw decode", "packbits encode", "packbits decode")
+    }
+    del data
+
+    def finish():
+        for task, job in jobs.items():
+            digest, seconds, n = job.get()
+            coder = task.split()[0]
+            print(f"python {task} 24MP: {seconds:.3f} s ({n} bytes; one process, while "
+                  f"the phase ran on the card)")
+            if task.endswith("encode"):
+                _require(digest == native[coder][1],
+                         f"native {coder} bytes equal the pure-Python coder's at 24 MP")
+            else:
+                _require(digest == want, f"python {coder} decodes the 24 MP frame back")
+
+    return finish
+
+
+def _evict(paths) -> None:
+    """Drop the files' pages from the page cache (after an fsync, so that
+    every page is clean), so that the next read comes from the disk."""
+    for path in paths:
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
+def _sequence_reads(burst_dir: str) -> None:
+    """(a) imread_sequence of phase 7's four 24 MP TIFFs, serial and through
+    the native prefetcher, in turns, on cached files and then with each
+    file's pages dropped from the page cache before every read."""
+    import glob
+
+    from ics_tpu_torch.utils.io import imread_sequence
+
+    paths = sorted(glob.glob(os.path.join(burst_dir, "burst*.tif")))
+    first, same = None, True
+    for files in ("cached", "evicted"):
+        walls = {True: [], False: []}
+        for prefetch in (False, True, True, False):
+            if files == "evicted":
+                _evict(paths)
+            t0 = time.perf_counter()
+            stack = imread_sequence(paths, prefetch=prefetch)
+            walls[prefetch].append(time.perf_counter() - t0)
+            first = stack if first is None else first
+            same = same and np.array_equal(stack, first)
+            del stack
+        print(f"imread_sequence 4x24MP 16-bit TIFFs, {files} files: prefetch=True "
+              f"{walls[True]} s, prefetch=False {walls[False]} s (turns: serial, prefetch, "
+              f"prefetch, serial)")
+    _require(first.shape == (4, 4000, 6000, 3) and same,
+             "imread_sequence with the prefetcher equals the serial read")
+
+
+def _bilateral_split(frame16: np.ndarray) -> None:
+    """(a) The CLI ``bilateral`` at 24 MP with the TIFF read, the filter and
+    the TIFF write timed apart (each stage synchronizes the card)."""
+    import tempfile
+
+    import torch
+
+    from ics_tpu_torch import cli
+    from ics_tpu_torch.utils import io as tio
+
+    spans = {"read": 0.0, "filter": 0.0, "write": 0.0}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    originals = (tio.load_image, tio.save, cli._per_channel)
+    tio.load_image, tio.save = timed("read", tio.load_image), timed("write", tio.save)
+    cli._per_channel = timed("filter", cli._per_channel)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            frame = os.path.join(tmp, "frame24.tif")
+            tio.imsave(frame, frame16)
+            wall, counts = _cli(["bilateral", frame, tmp])
+            out = tio.imread(os.path.join(tmp, "frame24-bilateral.tif"))
+    finally:
+        tio.load_image, tio.save, cli._per_channel = originals
+    rest = wall - sum(spans.values())
+    print(f"CLI bilateral 24MP split: wall {wall:.3f} s = TIFF read {spans['read']:.3f} s + "
+          f"filter (3 K6 planes) {spans['filter']:.3f} s + TIFF write {spans['write']:.3f} s "
+          f"+ rest (upload, scaling, download, argument parsing) {rest:.3f} s; "
+          f"launches {json.dumps(counts)}")
+    _require(counts["K6"] > 0 and out.shape == frame16.shape and out.dtype == np.uint16,
+             "CLI bilateral 24MP: K6 launched, a uint16 TIFF of the input's shape")
+
+
+def _batteries(dev) -> None:
+    """(b) The success and precision-quality batteries, the conv bench and
+    the scaling bench, each with the counters zeroed just before it."""
+    _zero_counters()
+    t0 = time.perf_counter()
+    rate, rows = selftest.bench_success_rate(report=print, device=dev)
+    counts = _counters()
+    print(f"success battery: {time.perf_counter() - t0:.1f} s, rate {rate:.4f}, launches "
+          f"{json.dumps(counts)}")
+    _require(len(rows) == 12 and all(np.isfinite(r[1:5]).all() for r in rows),
+             "success battery: 12 rows with finite errors and SSIMs")
+    _require(counts["K1"] > 0 and counts["K2"] > 0, "success battery: K1 and K2 launched")
+
+    _zero_counters()
+    t0 = time.perf_counter()
+    quality = selftest.bench_precision_quality(report=print, device=dev)
+    counts = _counters()
+    print(f"precision quality 24MP: {time.perf_counter() - t0:.1f} s, {json.dumps(quality)}, "
+          f"launches {json.dumps(counts)}")
+    _require(all(np.isfinite([quality[m]["ssim"], quality[m]["psnr"], quality[m]["ssim_vs_f32"]]).all()
+                 and quality[m]["outers"] >= 1 for m in ("float32", "high", "mixed")),
+             "precision quality 24MP: finite scores and at least one outer per mode")
+    _require(all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4s", "K4")),
+             "precision quality 24MP: K1, K2, K3, K4s and K4 launched")
+
+    _zero_counters()
+    t0 = time.perf_counter()
+    selftest.bench_conv_backends(report=print, device=dev)
+    counts = _counters()
+    print(f"conv bench: {time.perf_counter() - t0:.1f} s, launches {json.dumps(counts)}")
+    _require(all(counts[k] > 0 for k in ("K1", "K4s", "K4")), "conv bench: K1, K4s and K4 launched")
+
+    t0 = time.perf_counter()
+    scaling = selftest.bench_scaling(ns=(1,), report=print, device=dev)
+    print(f"scaling bench: {time.perf_counter() - t0:.1f} s")
+    _require(set(scaling) == {1} and scaling[1] > 0, "scaling bench: one NCCL rank ran")
+
+
+def _examples() -> None:
+    """(c) The four examples on 512^2 make_scene TIFFs, counters zeroed
+    before each; shard_deblur on one NCCL rank."""
+    import tempfile
+
+    from ics_tpu_torch.examples import (chroma_denoise, deblur_cases, hsv_color_balance,
+                                        shard_deblur)
+    from ics_tpu_torch.utils.io import imread, imsave
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = os.path.join(tmp, "scene512.tif")
+        imsave(scene, make_scene(512, 512, 5, seed=512)[1])
+        runs = [
+            ("deblur_cases", lambda: deblur_cases.main(
+                ["crop", "--input", scene, "--dest", os.path.join(tmp, "dc")]),
+             [os.path.join(tmp, "dc", "crop-blured-v1.tif")], (512, 512, 3), ("K1", "K2")),
+            ("chroma_denoise", lambda: chroma_denoise.main([scene, os.path.join(tmp, "cd")]),
+             [os.path.join(tmp, "cd", f"{n}.tif.tif")
+              for n in ("noisy", "channel", "collab", "collab_l2")], (256, 256, 3), ("K1", "K5")),
+            ("hsv_color_balance", lambda: hsv_color_balance.main([scene, os.path.join(tmp, "hsv")]),
+             [os.path.join(tmp, "hsv", "scene512-hue-shift.tif")], (512, 512, 3), ()),
+            ("shard_deblur --shard 1", lambda: shard_deblur.main(
+                [scene, os.path.join(tmp, "sd"), "--shard", "1", "--blur-width", "5"]),
+             [os.path.join(tmp, "sd", "scene512-sharded.tif")], (512, 512, 3), ()),
+        ]
+        for name, run, outputs, shape, kernels in runs:
+            _zero_counters()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = run()
+            wall = time.perf_counter() - t0
+            counts = _counters()
+            print(f"example {name} on a 512x512 scene: wall {wall:.3f} s, launches in this "
+                  f"process {json.dumps(counts)}")
+            _require(rc == 0, f"example {name} exits 0")
+            for path in outputs:
+                out = imread(path) if os.path.exists(path) else None
+                _require(out is not None and out.dtype == np.uint16 and out.shape == shape
+                         and np.isfinite(out).all() and out.max() > 0,
+                         f"example {name}: {os.path.basename(path)} is a uint16 TIFF of shape "
+                         f"{shape}")
+            _require(all(counts[k] > 0 for k in kernels),
+                     f"example {name}: {', '.join(kernels) or 'no kernel'} launched")
+
+
+def phase_host_and_batteries(torch, dev, pic24, burst_dir: str) -> None:
+    """8. (a) the native runtime: build at first use, the LZW and PackBits
+    coders at 24 MP against the pure-Python coders, imread_sequence with and
+    without the prefetcher, the CLI bilateral's read, filter and write
+    apart; (b) the batteries and benches of utils.selftest; (c) the four
+    examples."""
+    import multiprocessing
+
+    t_phase = time.perf_counter()
+    frame16 = pic24.astype(np.uint16) * 257
+    # the pool's context manager terminates the workers, on a failure too
+    with multiprocessing.get_context("spawn").Pool(4) as pool:
+        finish_python_coders = _native_coders(frame16, pool)
+        _sequence_reads(burst_dir)
+        _bilateral_split(frame16)
+        del frame16
+        print(f"phase 8 (a) on the card: {time.perf_counter() - t_phase:.1f} s")
+        _batteries(dev)
+        print(f"phase 8 (b): {time.perf_counter() - t_phase:.1f} s")
+        _examples()
+        t0 = time.perf_counter()
+        finish_python_coders()
+    print(f"phase 8: {time.perf_counter() - t_phase:.1f} s ({time.perf_counter() - t0:.1f} s "
+          f"waiting for the pure-Python coders at the end)")
+
+
+def compare_deblur_batch(other: str) -> int:
+    """``--deblur-batch-against DIR``: the wall of the CLI ``deblur-batch``
+    on phase 7's burst (four 24 MP 16-bit TIFFs, one 9x9 PSF, mask 511),
+    each run a process of its own started from the checkout ``DIR`` or from
+    this one: one untimed run of each (the kernel build), then in turns
+    DIR, this, this, DIR.  The two checkouts' TIFFs must be bitwise equal.
+    Then phase 8's ``imread_sequence`` reads of the same files."""
+    import tempfile
+
+    from ics_tpu_torch.models.checkpoint import SolverCheckpoint, save_checkpoint
+    from ics_tpu_torch.utils.io import imread, imsave
+
+    roots = {"other": os.path.abspath(other), "this": os.path.dirname(os.path.abspath(__file__))}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(4):
+            imsave(os.path.join(tmp, f"burst{i}.tif"),
+                   make_scene(4000, 6000, 9, seed=i)[1].astype(np.uint16) * 257)
+        ckpt = os.path.join(tmp, "psf.npz")
+        save_checkpoint(ckpt, SolverCheckpoint(psf=_gauss_psf(9), blur_width=9))
+        walls, outs = {"other": [], "this": []}, {}
+        for turn, name in enumerate(["other", "this", "other", "this", "this", "other"]):
+            dest = os.path.join(tmp, f"out{turn}")
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "ics_tpu_torch.cli", "deblur-batch",
+                 os.path.join(tmp, "burst*.tif"), dest, "--psf", ckpt, "--mask-size", "511"],
+                cwd=roots[name], env={**os.environ, "PYTHONPATH": roots[name]},
+                capture_output=True, text=True)
+            wall = time.perf_counter() - t0
+            _require(run.returncode == 0, f"deblur-batch from {roots[name]} exits 0: "
+                     f"{run.stderr[-2000:]}")
+            if turn >= 2:
+                walls[name].append(wall)
+            outs[name] = np.stack([imread(os.path.join(dest, f"burst{i}-deblurred.tif"))
+                                   for i in range(4)])
+            shutil.rmtree(dest)
+        print(f"CLI deblur-batch 4x24MP, a process each, after one warm-up run of each: "
+              f"{roots['other']} {walls['other']} s, {roots['this']} {walls['this']} s "
+              f"(turns: other, this, this, other)")
+        _require(np.array_equal(outs["other"], outs["this"]),
+                 "deblur-batch TIFFs bitwise equal from both checkouts")
+        del outs
+        _sequence_reads(tmp)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1111,6 +1029,8 @@ def main() -> int:
         print("FAIL torch.cuda.is_available() is False: this needs a CUDA GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--deblur-batch-against"]:
+        return compare_deblur_batch(sys.argv[2])
     t_smoke = time.perf_counter()
     from ics_tpu_torch import _build
     from ics_tpu_torch._device import exact_f32
@@ -1134,13 +1054,24 @@ def main() -> int:
     _build.load_library()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
+    from ics_tpu_torch.runtime import _lib as runtime_lib
 
-    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    lib = runtime_lib.load()
+    print(f"native runtime (ics_tpu_torch/runtime/src, first use) build + load: "
+          f"{time.perf_counter() - t0:.2f} s ({' '.join(runtime_lib.compiler() or ['no compiler'])} "
+          f"{runtime_lib.build_seconds if runtime_lib.build_seconds is not None else 'cached'} s): "
+          f"{lib._name if lib is not None else 'not built'}")
+
     torch.manual_seed(0)
-    rows = phase_kernels(torch, dev, rng)
+    rows = phase_kernels(dev)
     launches, pic19, outs19, pic24, exact24 = phase_pipelines(torch, dev)
     launches.update(phase_cli(pic19, outs19, pic24))
-    phase_parallel(torch, dev, pic19, outs19["mm"], pic24, exact24)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as burst_dir:  # phase 7's TIFFs, read again in 8
+        phase_parallel(torch, dev, pic19, outs19["mm"], pic24, exact24, burst_dir)
+        phase_host_and_batteries(torch, dev, pic24, burst_dir)
 
     sources = {
         "K1": ("ics_tpu_torch/csrc/conv2d.cu", "ics_tpu/ops/pallas_conv.py:39"),

@@ -23,6 +23,14 @@ Public surface of this slice:
     ``metrics`` and ``io`` (reference: lib/utils.py)
   - ``ics_tpu_torch.parallel``: batched deconvolution of a burst and the
     row-sharded solve over many ranks (``deblur_module(mesh=...)``)
+  - ``ics_tpu_torch.runtime``: the native C++ host tier (the LZW and
+    PackBits TIFF coders, the thread-pool file prefetcher), built with the
+    host compiler at first use
+  - ``ics_tpu_torch.utils.selftest``: ``certify_kernels`` (every kernel
+    against its twin on the card), the conv and scaling benches, the
+    blind-restoration success and precision-quality batteries
+  - ``ics_tpu_torch.examples``: the four examples, ``python -m
+    ics_tpu_torch.examples.<name>``
 """
 
 from ics_tpu_torch.ops.windows import (

@@ -16,7 +16,7 @@ In each turn, on inputs made from one seed: K3 at the 24 MP op loop's
 369^2 mk 7 and 520^2 mk 9 windows, K6 at one 4000x6000 plane r 5 in the
 ranges of the CLI's ``bilateral`` and ``bilateral-lab``.  Each result is
 held against that tree's plain twin and called twice (bitwise).  Times come
-from ``chip_smoke._median_ms``: ``ms`` as the smoke's kernels line reads
+from this tree's ``utils/selftest.py::_median_ms``: ``ms`` as the smoke's kernels line reads
 it (the call's wrapper included) and ``device_ms`` (the GPU kept busy ahead
 of the start event, so only the kernel's device time).
 """
@@ -40,8 +40,10 @@ _TURNS = ["old", "new", "exp2f", "exp2f", "new", "old"]
 
 
 def _smoke():
-    """This tree's chip_smoke.py, for its timing helper."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", _ROOT / "chip_smoke.py")
+    """This tree's utils/selftest.py, for its timing helper (loaded by path:
+    the worker's package may be another tree's)."""
+    spec = importlib.util.spec_from_file_location("ab_selftest",
+                                                  _PKG / "utils" / "selftest.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod

@@ -196,7 +196,9 @@ def _deblur_batch(args, device, mesh) -> int:
 
     psf = np.asarray(load_checkpoint(args.psf).psf, np.float32)
     paths = sorted(glob.glob(args.pattern))
-    pics = np.asarray(imread_sequence(paths))
+    # mapped serial reads: the prefetcher read four 24 MP TIFFs 1.5x slower
+    # (chip_smoke.py phase 8 (a); PERF.md)
+    pics = np.asarray(imread_sequence(paths, prefetch=False))
     if pics.ndim != 4 or pics.shape[-1] != 3:
         raise SystemExit(f"deblur-batch: expected a stack of RGB frames, got {pics.shape}")
     imgs, us, psfs, window = batch_inputs(pics, psf, args.bits, args.mask_size)

@@ -126,12 +126,6 @@ def _write_back(deblured_image, res, temp_top, temp_bottom, temp_left,
     return deblured_image
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to ics_tpu_torch yet (ROADMAP, '{item}')"
-    )
-
-
 @timeit
 def deblur_module(
     pic,
@@ -180,6 +174,8 @@ def deblur_module(
     ('exact', 'high', 'mixed', 'fast', 'hybrid', 'hybrid-high'), with
     ``use_tv`` / ``tv_norm``, ``inner_loop``, ``preview``, ``blind_budget``,
     ``nonblind_levels``, ``early_stop``, ``psf_path`` / ``save_psf_path``,
+    ``display`` (matplotlib, imported only then: after the blind phase,
+    the PSF scaled to [0, 1], then the mask window as uint8),
     ``stats_out``, ``compute_timer``, ``trace``, ``resize_backend`` ('jax',
     the on-device cubic, or 'scipy', the host spline) and ``dest_path``
     (a 16-bit TIFF ``<filename>.tif``, ``-preview`` appended with
@@ -188,8 +184,6 @@ def deblur_module(
     ``config`` passes through as their ``PAMConfig`` / ``PDConfig``;
     ``precision``, ``use_tv``, ``tv_norm``, ``inner_loop``, ``early_stop``
     and ``verbose``'s solver report are the 'mm' solver's only.
-    ``display`` is not ported and raises ``NotImplementedError`` naming its
-    ROADMAP item.
 
     ``mesh``: a 1-D ``DeviceMesh`` (``parallel.make_mesh``) whose dimension
     is named ``shard_axis``; every rank calls ``deblur_module`` with the
@@ -211,8 +205,6 @@ def deblur_module(
     def _stage(name):
         return tracer.stage(name) if tracer is not None else contextlib.nullcontext()
 
-    if display:
-        raise _not_ported("display=True (matplotlib)", "Host-side I/O, display and the CLI")
     if mesh is not None:
         if not isinstance(mesh, DeviceMesh):
             raise TypeError(f"mesh must be a torch DeviceMesh, got {type(mesh).__name__}")
@@ -505,6 +497,20 @@ def deblur_module(
                 )
                 if verbose:
                     print("Saved estimated PSF to %s" % save_psf_path)
+
+            if display and case == "blind":  # control preview (ref :331-336)
+                import matplotlib.pyplot as plt
+
+                psf_np = psf.cpu().numpy()
+                psf_check = (psf_np - np.amin(psf_np)) / (np.amax(psf_np) - np.amin(psf_np))
+                plt.imshow(psf_check, interpolation="lanczos", aspect="equal", vmin=0, vmax=1)
+                plt.show()
+                plt.imshow(
+                    (deblured_image[top:bottom, left:right, ...] * 255).cpu().numpy()
+                    .astype(np.uint8),
+                    interpolation="lanczos", aspect="equal", vmin=0, vmax=255,
+                )
+                plt.show()
 
     except KeyboardInterrupt:
         # Salvage the current iterate on hard interrupt (ref :338-342)

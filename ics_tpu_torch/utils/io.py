@@ -2,9 +2,11 @@
 JPEG/TIFF input (host-side NumPy).
 
 Copied from ics_tpu/utils/io.py: the port never imports ``ics_tpu``, whose
-package import loads JAX.  The copy keeps the file's own pure-Python codecs
-and the serial ``imread_sequence``; the JAX package's native C++ codecs and
-prefetcher (``ics_tpu.runtime``) are not ported yet (ROADMAP item 5).
+package import loads JAX.  As there, the LZW and PackBits coders and
+``imread_sequence(prefetch=True)`` go through the native runtime
+(``ics_tpu_torch.runtime``, built from C++ at first use), and the file's
+pure-Python coders, which give the same bytes, run on a host without a C++
+compiler.
 
 Parity targets: reference lib/utils.py:303-312 (``save`` → 16-bit RGB TIFF)
 and the vendored ``lib/tifffile.py`` read/write stack (C12 in SURVEY.md §2).
@@ -144,11 +146,17 @@ def _encode_lzw_py(data: bytes) -> bytes:
 
 def _compress(data: bytes, compression: str | None) -> tuple[bytes, int]:
     """Returns (payload, TIFF compression tag value)."""
+    from ics_tpu_torch.runtime import codecs
+
     if compression in (None, "none", 1):
         return data, 1
     if compression in ("lzw", 5):
+        if codecs.available():
+            return codecs.encode_lzw(data), 5
         return _encode_lzw_py(data), 5
     if compression in ("packbits", 32773):
+        if codecs.available():
+            return codecs.encode_packbits(data), 32773
         return _encode_packbits_py(data), 32773
     if compression in ("deflate", "zip", "adobe_deflate", 8, 32946):
         # Adobe Deflate (tag 8): a plain zlib stream (ref
@@ -544,7 +552,16 @@ def memmap_create(path: str, shape, dtype=np.uint16) -> np.memmap:
 
 
 def _decode_packbits(data: bytes, expected: int) -> bytes:
-    """Apple PackBits decompression."""
+    """Apple PackBits decompression (native path: the runtime's C++ coder)."""
+    from ics_tpu_torch.runtime import codecs
+
+    if codecs.available():
+        return codecs.decode_packbits(data, expected)
+    return _decode_packbits_py(data, expected)
+
+
+def _decode_packbits_py(data: bytes, expected: int) -> bytes:
+    """Apple PackBits decompression in Python."""
     out = bytearray()
     i = 0
     n = len(data)
@@ -561,8 +578,17 @@ def _decode_packbits(data: bytes, expected: int) -> bytes:
 
 
 def _decode_lzw(data: bytes, expected: int) -> bytes:
-    """TIFF-variant LZW (MSB-first, early code-size change; counterpart
+    """TIFF-variant LZW (native path: the runtime's C++ coder, counterpart
     of ref lib/tifffile.c:658)."""
+    from ics_tpu_torch.runtime import codecs
+
+    if codecs.available():
+        return codecs.decode_lzw(data, expected)
+    return _decode_lzw_py(data, expected)
+
+
+def _decode_lzw_py(data: bytes, expected: int) -> bytes:
+    """TIFF-variant LZW (MSB-first, early code-size change) in Python."""
     CLEAR, EOI = 256, 257
     out = bytearray()
     table: list[bytes] = []
@@ -1100,6 +1126,10 @@ def _read_ycbcr_page(raw, tags, values, rationals, width, height, bps,
 
 
 def _read_page(raw, en: str, big: bool, tags, path: str, memmap: bool):
+    # the pixel segments of an in-memory file (the prefetcher's bytearray)
+    # are read through a view, not copied out
+    px = memoryview(raw) if isinstance(raw, bytearray) else raw
+
     def values(tag, default=None):
         if tag not in tags:
             return default
@@ -1238,7 +1268,7 @@ def _read_page(raw, en: str, big: bool, tags, path: str, memmap: bool):
                 cnt = counts[s * strips_per_plane + k]
                 nrows = min(rows_per_strip, height - row)
                 decoded = _decode_segment(
-                    raw[off : off + cnt], nrows * row_bytes, compression
+                    px[off : off + cnt], nrows * row_bytes, compression
                 )
                 rows = np.frombuffer(decoded, dtype=dtype).reshape(
                     nrows, width
@@ -1274,7 +1304,7 @@ def _read_page(raw, en: str, big: bool, tags, path: str, memmap: bool):
         tile_bytes = tl * tw * spp * (bps // 8)
         for i, (off, cnt) in enumerate(zip(offsets, counts)):
             ty, tx = divmod(i, tiles_across)
-            decoded = _decode_segment(raw[off : off + cnt], tile_bytes, compression)
+            decoded = _decode_segment(px[off : off + cnt], tile_bytes, compression)
             rows = np.frombuffer(decoded, dtype=dtype).reshape(tl, tw * spp)
             rows = undo_pred(rows, tl, tw)
             y0, x0 = ty * tl, tx * tw
@@ -1292,7 +1322,7 @@ def _read_page(raw, en: str, big: bool, tags, path: str, memmap: bool):
         for off, cnt in zip(offsets, counts):
             nrows = min(rows_per_strip, height - row)
             decoded = _decode_segment(
-                raw[off : off + cnt], nrows * row_bytes, compression
+                px[off : off + cnt], nrows * row_bytes, compression
             )
             rows = np.frombuffer(decoded, dtype=dtype).reshape(nrows, width * spp)
             rows = undo_pred(rows, nrows, width)
@@ -1343,8 +1373,10 @@ def imread_sequence(pattern, prefetch: bool = True) -> np.ndarray:
     (N, ...) stack — the analog of the reference's ``TiffSequence``
     (ref lib/tifffile.py:4073).
 
-    Files are read one after another; ``prefetch`` is accepted for the JAX
-    package's signature (its native prefetcher is not ported)."""
+    With ``prefetch`` (and a C++ compiler for the native runtime), file
+    reads run on the C++ thread pool (``runtime/loader.py``), so that the
+    disk I/O of file *k+1...* overlaps the decode of file *k*; the serial
+    loop pays read + decode per file."""
     if isinstance(pattern, str):
         import glob
 
@@ -1354,6 +1386,13 @@ def imread_sequence(pattern, prefetch: bool = True) -> np.ndarray:
     if not paths:
         raise FileNotFoundError(f"no files match {pattern!r}")
 
+    if prefetch and len(paths) > 1:
+        from ics_tpu_torch.runtime import loader
+
+        if loader.available():
+            with loader.Prefetcher() as pool:
+                tickets = [pool.submit(p) for p in paths]
+                return np.stack([_decode_tiff(pool.take(t), p) for t, p in zip(tickets, paths)])
     return np.stack([imread(p) for p in paths])
 
 

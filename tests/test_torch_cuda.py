@@ -490,3 +490,67 @@ def test_one_rank_nccl_mesh_on_gpu():
         assert got.iterations == want.iterations
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_certify_kernels_passes_on_gpu():
+    """utils.selftest.certify_kernels: K1-K6 at the 24 MP shapes, the K2
+    inner loop against the op loop, the glue against one op at a time."""
+    from ics_tpu_torch.utils.selftest import certify_kernels
+
+    _need_gpu()
+    lines, rows = [], {}
+    assert certify_kernels(report=lines.append, rows=rows), "\n".join(
+        line for line in lines if "FAIL" in line or "ERROR" in line)
+    assert lines[-1].split(": ")[-1].endswith("checks passed")
+    keys = {"ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err"}
+    assert set(rows) == {"K1", "K2", "K3", "K4s", "K4", "K5", "K6"}
+    assert all(set(row) == keys for row in rows.values())
+    # the library calls timed beside K1 and K3 are held against the twins
+    agree = [line for line in lines if "the library call computes the same function" in line]
+    assert [line.split()[2] for line in agree] == ["K1", "K3"]
+
+
+@pytest.mark.cuda
+def test_bench_conv_backends_on_gpu():
+    from ics_tpu_torch.utils.selftest import bench_conv_backends
+
+    _need_gpu()
+    before = (cuda_conv.launches, cuda_conv_mma.split_launches, cuda_conv_mma.bf16_launches)
+    got = bench_conv_backends(shapes=((257, 383),), n_iter=3, reps=1, report=lambda line: None)
+    after = (cuda_conv.launches, cuda_conv_mma.split_launches, cuda_conv_mma.bf16_launches)
+    assert sorted(m for _, _, m in got) == ["K1", "K4", "K4s", "cudnn"]
+    assert all(ms > 0 for ms in got.values())
+    assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.cuda
+def test_success_rate_on_gpu():
+    import numpy as np
+
+    from ics_tpu_torch.utils.selftest import bench_success_rate
+
+    _need_gpu()
+    _, rows = bench_success_rate(size=64, iterations=2, mask_size=31, report=lambda line: None)
+    assert len(rows) == 12 and all(np.isfinite(r[1:5]).all() for r in rows)
+
+
+@pytest.mark.cuda
+def test_examples_on_gpu(tmp_path):
+    import numpy as np
+
+    from ics_tpu_torch.examples import chroma_denoise, deblur_cases, hsv_color_balance
+    from ics_tpu_torch.utils.io import imread, imsave
+    from ics_tpu_torch.utils.selftest import make_scene
+
+    _need_gpu()
+    frame = str(tmp_path / "scene.tif")
+    imsave(frame, make_scene(64, 64, 5, seed=11)[1])
+    deblur_cases.main(["crop", "--input", frame, "--dest", str(tmp_path / "dc"),
+                       "--mask-size", "31", "--iterations", "4"])
+    chroma_denoise.main([frame, str(tmp_path / "cd")])
+    hsv_color_balance.main([frame, str(tmp_path / "hsv")])
+    for path in (tmp_path / "dc" / "crop-blured-v1.tif", tmp_path / "cd" / "collab.tif.tif",
+                 tmp_path / "hsv" / "scene-hue-shift.tif"):
+        out = imread(str(path))
+        assert out.dtype == np.uint16 and out.shape == (64, 64, 3)

@@ -28,3 +28,7 @@ def test_port_file_imports_no_jax(path):
 def test_the_walk_sees_the_port():
     names = {p.name for p in FILES}
     assert {"cli.py", "io.py", "filters.py", "cuda_bilateral.py", "chip_smoke.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"ics_tpu_torch/runtime/codecs.py", "ics_tpu_torch/runtime/loader.py",
+            "ics_tpu_torch/utils/selftest.py", "ics_tpu_torch/examples/shard_deblur.py",
+            "ics_tpu_torch/examples/deblur_cases.py"} <= rel

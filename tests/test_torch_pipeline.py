@@ -134,7 +134,6 @@ def test_same_value_errors_as_jax(kw, match):
 @pytest.mark.parametrize(
     "kw,error",
     [
-        (dict(display=True), NotImplementedError),
         # mesh is ported (ROADMAP item 11): it takes a torch DeviceMesh
         (dict(mesh=object()), TypeError),
     ],
@@ -144,6 +143,40 @@ def test_unported_options_raise(kw, error):
     with pytest.raises(error):
         _quiet(ics_tpu_torch.deblur_module, FIXTURE, "x", blur_width=3,
                mask_size=31, iterations=1, verbose=False, device="cpu", **kw)
+
+
+def test_display_plots_match_jax(monkeypatch):
+    """display=True shows JAX's two plots after the blind phase: the blind
+    PSF scaled to [0, 1], then the uint8 mask window (exactly equal).  The
+    PSFs agree within 1e-6; the scaling divides that by the PSF's range
+    (2.2e-4 on this fixture, where a float32 ulp of 1/9 is already 3e-5 of
+    the scaled plot), so the plots are held to 1e-6 / range."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    shown = []
+    monkeypatch.setattr(plt, "show", lambda *a, **k: None)
+    monkeypatch.setattr(plt, "imshow", lambda arr, **k: shown.append((np.array(arr), k)))
+    kw = dict(mask_size=31, iterations=4, tolerance=10.0, display=True, verbose=False)
+    want_stats, got_stats = [], []
+    _quiet(ics_tpu.deblur_module, FIXTURE, "x", None, 3, stats_out=want_stats, **kw)
+    _quiet(ics_tpu_torch.deblur_module, FIXTURE, "x", None, 3, stats_out=got_stats,
+           device="cpu", **kw)
+    assert len(shown) == 4
+    (want_psf, want_kw), (want_win, want_win_kw), (got_psf, got_kw), (got_win, got_win_kw) = shown
+    assert got_kw == want_kw and got_win_kw == want_win_kw
+    assert got_kw["interpolation"] == "lanczos" and got_win_kw["vmax"] == 255
+    blind_want = np.asarray(want_stats[0]["result"].psf)
+    blind_got = got_stats[0]["result"].psf.numpy()
+    np.testing.assert_allclose(blind_got, blind_want, rtol=0, atol=1e-6)
+    span = float(blind_got.max() - blind_got.min())
+    np.testing.assert_array_equal(got_psf, (blind_got - blind_got.min()) / span)
+    assert got_psf.shape == want_psf.shape == (3, 3, 3)
+    np.testing.assert_allclose(got_psf, want_psf, rtol=0, atol=1e-6 / span)
+    assert got_win.dtype == want_win.dtype == np.uint8
+    np.testing.assert_array_equal(got_win, want_win)
 
 
 @pytest.mark.parametrize("name", ["blocky", "two-level", "motion", "final+budget"])
