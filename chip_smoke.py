@@ -10,8 +10,9 @@ Phases:
      kernel build;
   2. ``ics_tpu_torch.utils.selftest.certify_kernels``: each
      hand-written kernel (K1 conv, K2 inner loop, K3 PSF gradient, K4s
-     split and K4 bf16 tensor-core convs, K5 TV stencil, K6 bilateral
-     filter) against its plain PyTorch twin on the card, at its path's
+     split, K4 bf16, K4h f32-at-HIGHEST and K4d f32-at-DEFAULT tensor-core
+     convs, K5 TV stencil, K6 bilateral filter) against its plain PyTorch
+     twin on the card, at its path's
      shapes, with CUDA-event median times of both and of the one PyTorch
      call that computes the same function where there is one, taken in
      turns (the kernel's also as device time alone, ``device_ms``); every
@@ -83,7 +84,17 @@ Phases:
      outers per mode), the conv bench and the scaling bench on one NCCL
      rank, the counters zeroed before each; (c) the four examples
      (``ics_tpu_torch.examples``) on a 512^2 scene TIFF, each output a
-     uint16 TIFF of the expected shape.
+     uint16 TIFF of the expected shape;
+  9. the explicit conv methods (``RLConfig.conv_method``): the 24 MP scene,
+     non-blind, full width, 20 outers (tau 1e9) with 'auto' (K1), then
+     'pallas_mxu' at exact (K4h launched, K1 not, u within 1e-5 of 'auto')
+     and at 'fast' (K4d, SSIM >= 0.999 against 'auto'); a blind solve of
+     the 1.9 MP case's 255^2 mask window with 'pallas_mxu' and
+     ``inner_loop='xla'`` (K4h and K3 launched; u within 1e-6 and PSF
+     within 1e-5 of the 'auto' op loop); 'direct', 'fft', 'stencil',
+     'pallas' and 'mxu' at 1.9 MP, non-blind, 20 outers, each within 1e-5
+     of 'auto' with the launches that show its route; then K4h and K4d
+     against their twins at every shape these runs gave them.
 
 SSIM comes from ``ics_tpu_torch.utils.metrics``; every pass/fail comparison
 computes it on the CPU, so the yardstick is independent of the kernels.
@@ -178,7 +189,8 @@ def _counters():
     return {
         "K1": cuda_conv.launches, "K2": cuda_solver.launches,
         "K3": cuda_correlate.launches, "K4s": cuda_conv_mma.split_launches,
-        "K4": cuda_conv_mma.bf16_launches, "K5": cuda_tv.launches,
+        "K4": cuda_conv_mma.bf16_launches, "K4h": cuda_conv_mma.highest_launches,
+        "K4d": cuda_conv_mma.default_launches, "K5": cuda_tv.launches,
         "K6": cuda_bilateral.launches,
     }
 
@@ -190,6 +202,7 @@ def _zero_counters() -> None:
     for mod in (cuda_conv, cuda_solver, cuda_correlate, cuda_tv, cuda_bilateral):
         mod.launches = 0
     cuda_conv_mma.split_launches = cuda_conv_mma.bf16_launches = 0
+    cuda_conv_mma.highest_launches = cuda_conv_mma.default_launches = 0
 
 
 # the 24 MP case's kwargs (bench.py:336-348)
@@ -324,8 +337,10 @@ def prime_fft_times(torch, dev) -> None:
         del x
 
 
+# conv_mma_kernel<V, K>: V is csrc/conv_mma.cu's variant (0 K4, 1 K4s, 2 K4h, 3 K4d)
 _KERNEL_NAMES = [("conv2d_kernel", "K1"), ("inner_loop_kernel", "K2"), ("psf_grad", "K3"),
-                 ("conv_mma_kernel<true", "K4s"), ("conv_mma_kernel<false", "K4"),
+                 ("conv_mma_kernel<1,", "K4s"), ("conv_mma_kernel<0,", "K4"),
+                 ("conv_mma_kernel<2,", "K4h"), ("conv_mma_kernel<3,", "K4d"),
                  ("tv_kernel", "K5"), ("bilateral_kernel", "K6")]
 
 
@@ -896,7 +911,8 @@ def _batteries(dev) -> None:
     selftest.bench_conv_backends(report=print, device=dev)
     counts = _counters()
     print(f"conv bench: {time.perf_counter() - t0:.1f} s, launches {json.dumps(counts)}")
-    _require(all(counts[k] > 0 for k in ("K1", "K4s", "K4")), "conv bench: K1, K4s and K4 launched")
+    _require(all(counts[k] > 0 for k in ("K1", "K4s", "K4", "K4h", "K4d")),
+             "conv bench: K1, K4s, K4, K4h and K4d launched")
 
     t0 = time.perf_counter()
     scaling = selftest.bench_scaling(ns=(1,), report=print, device=dev)
@@ -974,6 +990,169 @@ def phase_host_and_batteries(torch, dev, pic24, burst_dir: str) -> None:
         finish_python_coders()
     print(f"phase 8: {time.perf_counter() - t_phase:.1f} s ({time.perf_counter() - t0:.1f} s "
           f"waiting for the pure-Python coders at the end)")
+
+
+# ---------------------------------------------------------------- phase 9
+def _rl(torch, dev, pic, mk, blind=False, window=None, **cfg):
+    """``richardson_lucy_MM`` on the uint8 frame ``pic`` (or its ``window``:
+    top, left, rows, columns) with the scene's mk x mk Gaussian PSF, 20
+    outers (tau 1e9: the stop never fires); (result, launches, seconds),
+    the counters zeroed just before the run."""
+    from ics_tpu_torch.models.rl_mm import RLConfig, richardson_lucy_MM
+
+    if window is not None:
+        top, left, rows, cols = window
+        pic = pic[top : top + rows, left : left + cols]
+    img = pic.astype(np.float32) / 255.0
+    pad = mk // 2
+    u0 = np.pad(img, ((pad, pad), (pad, pad), (0, 0)), mode="edge")
+    m, n = img.shape[:2]
+    box = (m // 2 - 255, m // 2 + 256, n // 2 - 255, n // 2 + 256) if m > 600 else \
+        (pad + 1, m - pad - 1, pad + 1, n - pad - 1)
+    image, u0 = torch.from_numpy(img).to(dev), torch.from_numpy(u0).to(dev)
+    torch.cuda.synchronize(dev)
+    _zero_counters()
+    t0 = time.perf_counter()
+    res = richardson_lucy_MM(image, u0, _gauss_psf(mk), *box, 1e9, iterations=20, blind=blind,
+                             config=RLConfig(**cfg), device=dev)
+    torch.cuda.synchronize(dev)
+    return res, _counters(), time.perf_counter() - t0
+
+
+def _u_rel(torch, got, ref) -> float:
+    return float(torch.max(torch.abs(got.u - ref.u)) / torch.max(torch.abs(ref.u)))
+
+
+def _finite(torch, res) -> bool:
+    return bool(torch.isfinite(res.u).all())
+
+
+# the blind 1.9 MP window solve, 'pallas_mxu' exact (K4h) against 'auto'
+# (K1), both through the op loop: u and PSF gaps relative to their largest
+# values after 20 outers, between K4h's readings on an H100 (1.3e-7, 1.7e-6)
+# and K4s's or K4d's in its place (3e-5 or more, 1e-2 or more)
+BLIND_U_TOL, BLIND_PSF_TOL = 1e-6, 1e-5
+
+
+def _recording(seen: set):
+    """Wraps K4h's and K4d's wrappers so that each call adds (wrapper, a's
+    shape, k's shape, mode) to ``seen``; returns the function that restores
+    them.  ops/conv.py reads the wrappers from the module at each call."""
+    from ics_tpu_torch.ops import cuda_conv_mma
+
+    originals = {n: getattr(cuda_conv_mma, n) for n in ("conv_highest", "conv_default")}
+
+    def wrap(name, fn):
+        def call(a, k, mode):
+            seen.add((name, tuple(a.shape), tuple(k.shape), mode))
+            return fn(a, k, mode)
+        return call
+
+    for name, fn in originals.items():
+        setattr(cuda_conv_mma, name, wrap(name, fn))
+    return lambda: [setattr(cuda_conv_mma, n, fn) for n, fn in originals.items()]
+
+
+def _check_seen(torch, dev, seen: set) -> None:
+    """K4h and K4d against their twins at every shape the phase gave them,
+    on uniform inputs, at the certification's bounds, and bitwise
+    reproducible; these launches come after the phase's counts were read."""
+    from ics_tpu_torch.ops import cuda_conv_mma
+    from ics_tpu_torch.utils.selftest import _Certify
+
+    tols = {fn: tol for fn, _, tol, _, _ in _Certify.K4_VARIANTS.values()}
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for name, a_shape, k_shape, mode in sorted(seen):
+        a = torch.rand(a_shape, device=dev, generator=gen) * 0.75 + 0.15
+        k = torch.rand(k_shape, device=dev, generator=gen) * 0.95 + 0.05
+        kern, plain = getattr(cuda_conv_mma, name), getattr(cuda_conv_mma, f"{name}_plain")
+        got, again = kern(a, k, mode), kern(a, k, mode)
+        ref = plain(a, k, mode)
+        rel = float(torch.max(torch.abs(got - ref)) / torch.max(torch.abs(ref)))
+        label = f"phase 9 shape {name} {a_shape} taps {k_shape[1:]} {mode}"
+        print(f"{label}: rel {rel:.3e} against its twin")
+        _require(rel <= tols[name], f"{label} within {tols[name]:g} of its twin")
+        _require(torch.equal(got, again), f"{label} bitwise reproducible")
+        del a, k, got, again, ref
+
+
+def phase_conv_methods(torch, dev, pic19, pic24) -> dict:
+    """Phase 9: ``RLConfig.conv_method`` on the card.  Returns the launches
+    of K4h (the 24 MP 'pallas_mxu' exact run) and K4d (its 'fast' run).
+    Every shape the runs give K4h and K4d is then certified against the
+    twins."""
+    t_phase = time.perf_counter()
+    seen = set()
+    restore = _recording(seen)
+    try:
+        launches = _conv_method_runs(torch, dev, pic19, pic24)
+    finally:
+        restore()
+    _check_seen(torch, dev, seen)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 9: {seconds:.1f} s")
+    _require(seconds <= 60.0, "phase 9 takes at most 60 s")
+    return launches
+
+
+def _conv_method_runs(torch, dev, pic19, pic24) -> dict:
+    from ics_tpu_torch.utils import metrics
+
+    launches = {}
+    ref, counts, wall = _rl(torch, dev, pic24, 9)
+    print(f"phase 9: 24MP non-blind 20 outers 'auto': {wall:.3f} s, launches {json.dumps(counts)}")
+    _require(counts["K1"] > 0 and _finite(torch, ref), "24 MP 'auto' runs K1, u finite")
+    got, counts, wall = _rl(torch, dev, pic24, 9, conv_method="pallas_mxu")
+    rel = _u_rel(torch, got, ref)
+    print(f"phase 9: 24MP 'pallas_mxu' exact: {wall:.3f} s, launches {json.dumps(counts)}, "
+          f"u rel {rel:.3e} against 'auto'")
+    _require(counts["K4h"] > 0 and counts["K1"] == 0,
+             "24 MP 'pallas_mxu' exact launches K4h and not K1")
+    _require(rel <= 1e-5, "24 MP 'pallas_mxu' exact u within 1e-5 of 'auto'")
+    launches["K4h"] = counts["K4h"]
+    got, counts, wall = _rl(torch, dev, pic24, 9, conv_method="pallas_mxu",
+                            conv_precision="fast")
+    s = metrics.ssim(got.u.cpu().numpy(), ref.u.cpu().numpy(), device="cpu")
+    print(f"phase 9: 24MP 'pallas_mxu' fast: {wall:.3f} s, launches {json.dumps(counts)}, "
+          f"u rel {_u_rel(torch, got, ref):.3e}, SSIM against 'auto' {s:.7f} (CPU)")
+    _require(counts["K4d"] > 0 and counts["K1"] == 0,
+             "24 MP 'pallas_mxu' fast launches K4d and not K1")
+    _require(s >= 0.999, "24 MP 'pallas_mxu' fast SSIM >= 0.999 against 'auto'")
+    launches["K4d"] = counts["K4d"]
+    del ref, got
+
+    # the 1.9 MP case's blind mask window (255^2 around [584, 795]), op loop
+    window = (584 - 127, 795 - 127, 255, 255)
+    blind_ref, counts, _ = _rl(torch, dev, pic19, 7, blind=True, window=window,
+                               inner_loop="xla")
+    got, counts, wall = _rl(torch, dev, pic19, 7, blind=True, window=window,
+                            inner_loop="xla", conv_method="pallas_mxu")
+    u_rel = _u_rel(torch, got, blind_ref)
+    psf_rel = float(torch.max(torch.abs(got.psf - blind_ref.psf)) / torch.max(blind_ref.psf))
+    print(f"phase 9: 1.9MP blind 255^2 window 'pallas_mxu', inner_loop='xla': {wall:.3f} s, "
+          f"launches {json.dumps(counts)}, u rel {u_rel:.3e} and psf rel {psf_rel:.3e} "
+          "against 'auto'")
+    _require(counts["K4h"] > 0 and counts["K3"] > 0 and _finite(torch, got),
+             "1.9 MP blind 'pallas_mxu' with inner_loop='xla' launches K4h and K3")
+    _require(u_rel <= BLIND_U_TOL and psf_rel <= BLIND_PSF_TOL,
+             f"1.9 MP blind 'pallas_mxu' u within {BLIND_U_TOL:g} and psf within "
+             f"{BLIND_PSF_TOL:g} of 'auto'")
+
+    # every other method, non-blind at 1.9 MP, against 'auto'
+    ref, _, _ = _rl(torch, dev, pic19, 7)
+    routes = {"direct": (), "fft": (), "stencil": ("K1",), "pallas": ("K1",), "mxu": ("K4h",)}
+    for method, names in routes.items():
+        got, counts, wall = _rl(torch, dev, pic19, 7, conv_method=method)
+        rel = _u_rel(torch, got, ref)
+        print(f"phase 9: 1.9MP non-blind '{method}': {wall:.3f} s, launches "
+              f"{json.dumps(counts)}, u rel {rel:.3e} against 'auto'")
+        conv_kernels = ("K1", "K4s", "K4", "K4h", "K4d")
+        _require(all((counts[n] > 0) == (n in names) for n in conv_kernels),
+                 f"1.9 MP '{method}' launches "
+                 + (f"{', '.join(names)} and no other conv kernel" if names else
+                    "no conv kernel (cuDNN or cuFFT)"))
+        _require(rel <= 1e-5, f"1.9 MP '{method}' u within 1e-5 of 'auto'")
+    return launches
 
 
 def compare_deblur_batch(other: str) -> int:
@@ -1072,6 +1251,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as burst_dir:  # phase 7's TIFFs, read again in 8
         phase_parallel(torch, dev, pic19, outs19["mm"], pic24, exact24, burst_dir)
         phase_host_and_batteries(torch, dev, pic24, burst_dir)
+    launches.update(phase_conv_methods(torch, dev, pic19, pic24))
 
     sources = {
         "K1": ("ics_tpu_torch/csrc/conv2d.cu", "ics_tpu/ops/pallas_conv.py:39"),
@@ -1079,6 +1259,8 @@ def main() -> int:
         "K3": ("ics_tpu_torch/csrc/psf_grad.cu", "ics_tpu/ops/pallas_correlate.py:38"),
         "K4s": ("ics_tpu_torch/csrc/conv_mma.cu", "ics_tpu/ops/pallas_conv_mxu.py:118"),
         "K4": ("ics_tpu_torch/csrc/conv_mma.cu", "ics_tpu/ops/pallas_conv_mxu.py:170"),
+        "K4h": ("ics_tpu_torch/csrc/conv_mma.cu", "ics_tpu/ops/pallas_conv_mxu.py:170"),
+        "K4d": ("ics_tpu_torch/csrc/conv_mma.cu", "ics_tpu/ops/pallas_conv_mxu.py:170"),
         "K5": ("ics_tpu_torch/csrc/tv.cu", "ics_tpu/ops/pallas_tv.py:62"),
         "K6": ("ics_tpu_torch/csrc/bilateral.cu", "ics_tpu/ops/pallas_bilateral.py:58"),
     }

@@ -4,8 +4,10 @@ The sources under ``csrc/`` have a plain C interface.  ``nvcc`` compiles
 each one to an object file, all started together, then links them into one
 shared library, loaded with ``ctypes``.  The build runs at first use (never
 at import: machines without a GPU import every module), is keyed by a hash
-of the sources and flags, and lands in ``_build/`` beside this file, which
-``.gitignore`` lists.
+of the sources and flags, and lands in ``build_dir()``: ``_build/`` beside
+this file, which ``.gitignore`` lists, unless
+``utils.cache.enable_persistent_cache`` named another directory before the
+first build (a read-only install builds elsewhere that way).
 
 No ``--use_fast_math``: the solver's DoF term divides by ``gradu + image``
 with no epsilon (ics_tpu/models/rl_mm.py:413), so approximate division or
@@ -23,10 +25,11 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "check", "build_seconds"]
+__all__ = ["load_library", "check", "build_seconds", "build_dir", "set_build_dir", "loaded"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_BUILD = Path(__file__).resolve().parent / "_build"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+_build_dir = DEFAULT_BUILD_DIR  # where this library and the C++ runtime are built
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -58,6 +61,10 @@ _SIGNATURES = {
     # inst, tile_rows, grid, smem (ops/cuda_conv_mma.py::geometry), stream
     "ics_conv_mma_split": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "ics_conv_mma_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ics_conv_mma_highest": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P],
+    "ics_conv_mma_default": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P],
     # u, tv, div, C, H, W, order, norm, eps, eps2, sqrt2, adjust, is_bf16, stream
     "ics_tv": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
     # src, out, C, H, W, radius, s, a (ops/cuda_bilateral.py::_kernel_constants),
@@ -68,6 +75,23 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_seconds: float | None = None  # wall time of this process's build
+
+
+def build_dir() -> Path:
+    """The directory that holds the kernels' and the runtime's builds."""
+    return _build_dir
+
+
+def set_build_dir(path) -> None:
+    """Build into ``path`` from now on (``utils.cache.enable_persistent_cache``
+    checks that nothing is loaded yet)."""
+    global _build_dir
+    _build_dir = Path(path)
+
+
+def loaded() -> bool:
+    """Whether this process has loaded the kernel library."""
+    return _lib is not None
 
 
 def _nvcc() -> str:
@@ -108,7 +132,7 @@ def load_library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         sources = _sources()
-        out_dir = _BUILD / _digest(sources)
+        out_dir = _build_dir / _digest(sources)
         so = out_dir / "libics_kernels.so"
         if not so.exists():
             out_dir.mkdir(parents=True, exist_ok=True)

@@ -438,6 +438,12 @@ def main(argv=None, device="cuda") -> int:
     p.set_defaults(fn=_cmd_tv_denoise)
 
     args = parser.parse_args(argv)
+    # the directory of the kernels' and the runtime's builds, where
+    # ics_tpu/cli.py:426-431 turns on XLA's compile cache; without a path it
+    # stays the one in use (the package's _build/ or one a caller named)
+    from ics_tpu_torch.utils.cache import enable_persistent_cache
+
+    enable_persistent_cache()
     return args.fn(args, resolve_device(device))
 
 

@@ -15,9 +15,9 @@ with ``--device cpu`` (default one rank):
     python -m ics_tpu_torch.examples.shard_deblur frame.tif out/ --shard 4 --device cpu
 
 The JAX example turns on XLA's persistent compile cache first; the port
-has nothing to compile per shape, and its kernel build is cached by source
-hash under ``ics_tpu_torch/_build/`` (``ics_tpu_torch/_build.py``), which
-plays that role.
+has nothing to compile per shape, and ``enable_persistent_cache`` keeps the
+directory where its kernels and runtime are built once per source hash
+(``ics_tpu_torch/_build/`` unless a caller named another).
 """
 
 from __future__ import annotations
@@ -66,6 +66,9 @@ def main(argv=None) -> int:
 
     from ics_tpu_torch._device import resolve_device
     from ics_tpu_torch.parallel import TILE_AXIS
+    from ics_tpu_torch.utils.cache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     device = resolve_device(args.device)
     if not args.shard:

@@ -12,10 +12,12 @@ outer count.
 
 Inner loop, per outer iteration, as ``RLConfig.inner_loop`` routes it
 (``inner_loop_route``): the one-launch kernel K2 (ops/cuda_solver.py), or
-the op-level loop on the convolution dispatch (K1, K4s under
-``conv_precision='high'``, K4 for bf16 operands), the K3 PSF gradient
-(float32 blind solves) and the K5 TV stencil (``use_tv``).  On the CPU,
-both run on the plain twins.
+the op-level loop on the convolution dispatch (``RLConfig.conv_method``:
+'auto' runs K1, K4s under ``conv_precision='high'`` and K4 for bf16
+operands; 'pallas_mxu' K4h, K4s or K4d by ``conv_precision``), the K3 PSF
+gradient (float32 blind solves) and the K5 TV stencil (``use_tv``).  K2
+does its own convolutions, as JAX's kernel does, whatever
+``conv_method`` says.  On the CPU, both run on the plain twins.
 
 State inside the solver is planar (C, H, W) and contiguous; the public
 functions take and return the JAX package's (H, W, C) layout.
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from ics_tpu_torch._device import exact_f32, resolve_device
-from ics_tpu_torch.ops.conv import _autocorrelate_planar, conv_planar
+from ics_tpu_torch.ops.conv import METHODS, _autocorrelate_planar, conv_planar
 from ics_tpu_torch.ops.cuda_correlate import psf_gradient_planar
 from ics_tpu_torch.ops.cuda_solver import fits, inner_loop_ops, inner_loop_planar
 from ics_tpu_torch.ops.reductions import whiteness_weights
@@ -43,6 +45,8 @@ _EPS_BLIND = 1e-2  # ref lib/deconvolution.pyx:435
 _EPS_NONBLIND = 1e-6  # ref lib/deconvolution.pyx:437
 _TV_NORMS = {"channel": False, "collab": "sup", "collab_l2": "l2"}
 _INNER_LOOPS = ("auto", "xla", "pallas", "pallas_unrolled")
+# conv_precision -> ops/conv.py's precision (ics_tpu/models/rl_mm.py:313-317)
+_CONV_PRECISIONS = {"exact": "exact", "high": "bf16x3", "fast": "fast"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,9 +54,11 @@ class RLConfig:
     """Solver options beyond the reference's kwarg surface, with the JAX
     package's names and meanings (ics_tpu/models/rl_mm.py:52-187).
 
-    ``conv_method`` other than 'auto' raises ``NotImplementedError``: the
-    port picks each convolution's backend from its dtype, precision and
-    size (ROADMAP "Not ported, on purpose").
+    ``conv_method`` routes the op loop's convolutions (``ops/conv.py``):
+    'auto' (K1, or K4s under 'high', K4 on bf16 operands), 'pallas_mxu'
+    and 'mxu' (K4h at 'exact', K4s at 'high', K4d at 'fast'; K4 on bf16),
+    'pallas' and 'stencil' (K1), 'direct' (cuDNN, TF32 off) and 'fft'
+    (cuFFT).
     """
 
     use_tv: bool = False  # False = as-checked-in parity; True = intended MM math
@@ -61,10 +67,11 @@ class RLConfig:
     tv_method: str = "auto"
     tv_norm: str = "channel"  # 'channel' | 'collab' | 'collab_l2'
     conv_method: str = "auto"
-    # 'exact': float32 convs; 'high': f32 convs of 81-961 taps through the
-    # bf16x3 split kernel K4s (about 1e-6 relative, not bit parity);
-    # 'fast': the JAX package's single-pass MXU convs, exact f32 here (its
-    # own stencil and Pallas paths are exact f32 too)
+    # 'exact': float32 convs (HIGHEST); 'high': f32 convs through the bf16x3
+    # split kernel K4s (about 1e-6 relative, not bit parity), under 'auto'
+    # those of 81-961 taps; 'fast': single-pass bf16 products (DEFAULT)
+    # where the method is 'pallas_mxu' or 'mxu' (K4d), exact f32 under the
+    # other methods (JAX's stencil and VPU Pallas paths are exact f32 too)
     conv_precision: str = "exact"
     # 'float32' (parity) | 'mixed' (non-blind solves: bf16 convs through
     # K4, f32 iterate and incremental f32 residual) | 'bfloat16' (all bf16)
@@ -269,12 +276,8 @@ def _solve(
         raise ValueError(f"unknown dtype {dtype!r} (use 'float32', 'mixed' or 'bfloat16')")
     if psf_grad not in ("auto", "pallas", "conv"):
         raise ValueError(f"unknown psf_grad {psf_grad!r} (use 'auto', 'pallas' or 'conv')")
-    if conv_method != "auto":
-        raise NotImplementedError(
-            f"conv_method={conv_method!r}: the port picks each convolution's "
-            "backend from its dtype, precision and size (ROADMAP, 'Not "
-            "ported, on purpose')"
-        )
+    if conv_method not in METHODS:
+        raise ValueError(f"unknown conv_method {conv_method!r} (use {', '.join(METHODS)})")
     batch = image.shape[0] if image.ndim == 4 else None
     lanes, chans = batch or 1, image.shape[-1]
     if record and lanes > 1:
@@ -303,9 +306,8 @@ def _solve(
         def inner(u, image, psf, lanes, **kw):
             return *inner_loop_planar(u, image, psf, **kw), image
     else:
-        conv = functools.partial(
-            conv_planar, precision="bf16x3" if conv_precision == "high" else "exact"
-        )
+        conv = functools.partial(conv_planar, precision=_CONV_PRECISIONS[conv_precision],
+                                 method=conv_method)
         if psf_grad != "conv" and compute == f32:
             grad = psf_gradient_planar  # K3 on CUDA tensors
         else:

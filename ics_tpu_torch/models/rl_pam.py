@@ -15,14 +15,18 @@ reads the whiteness stop flag on the host once per outer iteration, where
 the JAX ``lax.while_loop`` tests it (as in ``rl_mm.py``).
 
 Backends, per inner step, on CUDA tensors (their plain twins on CPU ones):
-the two data-term convolutions go through the convolution dispatch (K1 for
-PSFs up to 31x31), the TV curvature through K5 (order 2, L2), and the blind
-PSF gradient ``conv_valid(rot180(u), error)`` through K3, which computes
-exactly ``rot180(corr_valid(u, error))`` without a rotated copy.  The JAX
+the two data-term convolutions go through the convolution dispatch with
+``PAMConfig.conv_method`` at exact precision, as JAX's (K1 for PSFs up to
+31x31 under 'auto', K4h under 'pallas_mxu' and 'mxu', cuDNN under
+'direct', cuFFT under 'fft'), the TV curvature through K5 (order 2, L2),
+and the blind PSF gradient ``conv_valid(rot180(u), error)`` through K3,
+which computes exactly ``rot180(corr_valid(u, error))`` without a rotated
+copy.  The JAX
 package reaches that gradient through its convolution dispatch, which sends
 it to the FFT backend only because the residual is passed as the "kernel"
-(ics_tpu/ops/conv.py:436-437); K3 is the port's route for every float32
-blind solve, as in the MM solver.
+(ics_tpu/ops/conv.py:436-437), and under an explicit method to that
+method (where 'pallas_mxu' raises for a window over 129 columns); K3 is the
+port's route for every float32 blind solve, as in the MM solver.
 
 State is planar (C, H, W); the public function takes and returns the JAX
 package's (H, W, C) layout.
@@ -37,7 +41,7 @@ import torch
 
 from ics_tpu_torch._device import exact_f32, resolve_device
 from ics_tpu_torch.models.rl_mm import RLResult, _hwc, _planar, final_stats, whiteness_stop
-from ics_tpu_torch.ops.conv import conv_planar
+from ics_tpu_torch.ops.conv import METHODS, conv_planar
 from ics_tpu_torch.ops.cuda_correlate import psf_gradient_planar
 from ics_tpu_torch.ops.psf import project_planar
 from ics_tpu_torch.ops.reductions import whiteness_weights
@@ -52,6 +56,7 @@ _INNER_ITER = 5
 class PAMConfig:
     lambda_tv: float = 2e-3  # TV weight (paper's λ; decoupled from the MM λ)
     epsilon: float = 1e-3  # TV ε-regularization
+    # the data-term convolutions' method (ops/conv.py METHODS)
     conv_method: str = "auto"
 
 
@@ -62,12 +67,8 @@ def _solve_pam(image, u, psf, weights, *, top, bottom, left, right, tau, step_fa
     (u_out, psf, stats) with stats [iterations, converged, M_r, Hu, varu],
     as the JAX ``_solve_pam`` returns them."""
     exact_f32()
-    if conv_method != "auto":
-        raise NotImplementedError(
-            f"conv_method={conv_method!r}: the port picks each convolution's "
-            "backend from its dtype, precision and size (ROADMAP, 'Not "
-            "ported, on purpose')"
-        )
+    if conv_method not in METHODS:
+        raise ValueError(f"unknown conv_method {conv_method!r} (use {', '.join(METHODS)})")
     dev = u.device
     image, u, psf = _planar(image), _planar(u), _planar(psf)
     _, m, n = image.shape
@@ -87,8 +88,8 @@ def _solve_pam(image, u, psf, weights, *, top, bottom, left, right, tau, step_fa
     while it < iterations and not stop:
         for _ in range(_INNER_ITER):
             # data-term gradient kᵀ∗(k∗u − f), full support
-            error = conv_planar(u, psf, "valid") - image
-            grad_data = conv_planar(error, psf_rot, "full")
+            error = conv_planar(u, psf, "valid", method=conv_method) - image
+            grad_data = conv_planar(error, psf_rot, "full", method=conv_method)
             # TV curvature: K5's div is the normalized negative divergence
             # of the order-2 stencil; over the ε-magnitude it is the
             # gradient of TV
@@ -101,7 +102,7 @@ def _solve_pam(image, u, psf, weights, *, top, bottom, left, right, tau, step_fa
             )
             u = u - dt[:, None, None] * gradu
             if blind:
-                error = conv_planar(u, psf, "valid") - image
+                error = conv_planar(u, psf, "valid", method=conv_method) - image
                 gradk = psf_gradient_planar(u, error)  # K3 on CUDA tensors
                 dtpsf = sf_mk * (torch.amax(psf) + inv_un3) / (
                     torch.amax(torch.abs(gradk)) + 1e-15

@@ -1,22 +1,49 @@
 """2-D convolution with exact scipy.signal.convolve ``valid|same|full``
 semantics (counterpart of ics_tpu/ops/conv.py).
 
-Backends, picked by dtype, precision and kernel size (the counterpart of
-``_dispatch``, ics_tpu/ops/conv.py:367-450); each hand-written kernel runs on
-CUDA tensors and its plain twin on CPU tensors:
+``method`` and ``precision`` take the JAX package's names (its
+``_dispatch``, ics_tpu/ops/conv.py:367-450); ``precision`` is ``'exact'``
+(``lax.Precision.HIGHEST``), ``'bf16x3'`` or ``'fast'``
+(``lax.Precision.DEFAULT``).  Each hand-written kernel runs on CUDA tensors
+and its plain twin on CPU tensors.
+
+``method='auto'`` picks by dtype, precision and kernel size:
 
 * float32 with ``precision="bf16x3"`` and 81-961 taps: K4s
   (``ops/cuda_conv_mma.py``), the hi/lo-split tensor-core kernel.  That is
   where the JAX package ran its split kernel on the TPU, so ``high``
   deviates from exact f32 where it did there.
-* other float32 convolutions with taps up to 31x31: K1 (``ops/cuda_conv.py``).
-  The JAX package sends 81-961 taps to its Pallas kernel and smaller ones
-  to XLA stencils; the port sends them all to K1.
+* other float32 convolutions with taps up to 31x31: K1 (``ops/cuda_conv.py``),
+  at every precision.  The JAX package sends 81-961 taps to its Pallas
+  kernel and smaller ones to XLA stencils; the port sends them all to K1.
 * bfloat16 convolutions with taps up to 31x31: K4 (``ops/cuda_conv_mma.py``),
   f32 accumulation and one rounding.  A stated deviation: JAX's bf16
   stencil under 81 taps rounds its partial sums to bf16.
 * ``torch.fft`` above 31 taps a side (``_conv_fft``), the JAX ``fft``
   backend: float32 math, cast back to the input dtype.
+
+The explicit methods, for taps up to 31 a side:
+
+* ``'pallas_mxu'`` and ``'mxu'`` (JAX's MXU Pallas kernel and its XLA
+  banded product, the same function at the same precision): K4 on bfloat16
+  operands; on float32 ones K4h at ``'exact'``, K4s at ``'bf16x3'`` and K4d
+  at ``'fast'``.  JAX's explicit path turns ``'bf16x3'`` into HIGHEST
+  before it reaches the kernel (ics_tpu/ops/conv.py:369-373); the port runs
+  the split kernel that the name asks for, within 1e-5 of HIGHEST.
+* ``'pallas'`` and ``'stencil'`` (JAX's VPU Pallas kernel and its XLA
+  shift-and-add, the same f32 function): K1 on float32, K4 on bfloat16
+  under the deviation above.
+* ``'direct'``: cuDNN's grouped ``conv2d`` with TF32 off
+  (``_device.exact_f32``; bfloat16 computed in f32 and rounded once).  It
+  is the counterpart of ``lax.conv_general_dilated``, which JAX runs
+  outside any Pallas kernel, as the port runs this outside its own.
+* ``'fft'``: ``_conv_fft`` (cuFFT on the card).
+
+Above 31 taps a side, where no kernel instance takes them, ``'pallas_mxu'``,
+``'pallas'`` and ``'stencil'`` take ``'direct'``, as JAX falls back when its
+tile does not fit (ics_tpu/ops/conv.py:266-275, :335-339); ``'pallas_mxu'``
+raises ``ValueError`` above 129 columns (:315-321) and ``'mxu'`` takes
+``'fft'`` above 128 (:208-209).  Any other method raises ``ValueError``.
 
 ``fft_autocorrelate_same`` is the residual-whiteness autocovariance of the
 solver's stopping rule.
@@ -116,35 +143,66 @@ def _conv_fft(a: torch.Tensor, k: torch.Tensor, mode: str) -> torch.Tensor:
 
 
 _SPLIT_MIN_TAPS = 9 * 9  # ics_tpu/ops/conv.py:40 _MXU_THRESHOLD_TAPS
+METHODS = ("auto", "stencil", "pallas", "pallas_mxu", "mxu", "direct", "fft")
+PRECISIONS = ("exact", "bf16x3", "fast")
+_MXU_MAX_WIDTH = 129  # pallas_mxu's 2 x 128-lane window (ics_tpu/ops/conv.py:315-321)
+
+
+def _conv_direct(a: torch.Tensor, k: torch.Tensor, mode: str) -> torch.Tensor:
+    """cuDNN's grouped convolution with TF32 off, computed in float32 and
+    cast back to ``a``'s dtype (JAX's ``direct``, ``_conv_direct``)."""
+    from ics_tpu_torch._device import exact_f32
+    from ics_tpu_torch.ops.cuda_conv import conv_planar_plain
+
+    exact_f32()
+    return conv_planar_plain(a.float(), k.float(), mode).to(a.dtype)
 
 
 def conv_planar(a: torch.Tensor, k: torch.Tensor, mode: str,
-                precision: str = "exact") -> torch.Tensor:
-    """Per-channel convolution of planar a: (C, H, W) with k: (C, MK, NK).
-
-    ``precision``: 'exact', or 'bf16x3' for the split kernel K4s on float32
-    operands of 81 taps or more (what ``conv_precision='high'`` selects).
-    """
+                precision: str = "exact", method: str = "auto") -> torch.Tensor:
+    """Per-channel convolution of planar a: (C, H, W) with k: (C, MK, NK),
+    routed by ``method`` and ``precision`` as the module's docstring says."""
     from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma
 
-    if precision not in ("exact", "bf16x3"):
-        raise ValueError(f"unknown precision {precision!r} (use 'exact' or 'bf16x3')")
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r} (use {', '.join(PRECISIONS)})")
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r} (use {', '.join(METHODS)})")
     mk, nk = k.shape[1], k.shape[2]
-    if max(mk, nk) > cuda_conv.MAX_TAPS_SIDE:
+    small = max(mk, nk) <= cuda_conv.MAX_TAPS_SIDE
+    bf16 = a.dtype == torch.bfloat16
+    if method == "auto":
+        if not small:
+            return _conv_fft(a, k, mode)
+        if bf16:
+            return cuda_conv_mma.conv_bf16(a, k, mode)
+        if precision == "bf16x3" and mk * nk >= _SPLIT_MIN_TAPS:
+            return cuda_conv_mma.conv_split(a, k, mode)
+        return cuda_conv.conv_planar(a, k, mode)
+    if method == "pallas_mxu" and nk > _MXU_MAX_WIDTH:
+        raise ValueError(f"pallas_mxu supports kernel widths <= {_MXU_MAX_WIDTH}, got {nk}")
+    if method == "fft" or (method == "mxu" and nk > _MXU_MAX_WIDTH - 1):
         return _conv_fft(a, k, mode)
-    if a.dtype == torch.bfloat16:
+    if method == "direct" or not small:
+        return _conv_direct(a, k, mode)
+    if bf16:
         return cuda_conv_mma.conv_bf16(a, k, mode)
-    if precision == "bf16x3" and mk * nk >= _SPLIT_MIN_TAPS:
-        return cuda_conv_mma.conv_split(a, k, mode)
-    return cuda_conv.conv_planar(a, k, mode)
+    if method in ("pallas", "stencil"):
+        return cuda_conv.conv_planar(a, k, mode)
+    mxu = {"exact": cuda_conv_mma.conv_highest, "bf16x3": cuda_conv_mma.conv_split,
+           "fast": cuda_conv_mma.conv_default}
+    return mxu[precision](a, k, mode)
 
 
-def convolve2d(a: torch.Tensor, k: torch.Tensor, mode: str = "same") -> torch.Tensor:
+def convolve2d(a: torch.Tensor, k: torch.Tensor, mode: str = "same", method: str = "auto",
+               precision: str = "exact") -> torch.Tensor:
     """scipy.signal.convolve-compatible 2-D convolution of (H, W) tensors."""
-    return conv_planar(a.unsqueeze(0).contiguous(), k.unsqueeze(0).contiguous(), mode)[0]
+    return conv_planar(a.unsqueeze(0).contiguous(), k.unsqueeze(0).contiguous(), mode,
+                       precision, method)[0]
 
 
-def convolve_rgb(a: torch.Tensor, k: torch.Tensor, mode: str = "same") -> torch.Tensor:
+def convolve_rgb(a: torch.Tensor, k: torch.Tensor, mode: str = "same", method: str = "auto",
+                 precision: str = "exact") -> torch.Tensor:
     """Per-channel 2-D convolution of an (H, W, C) image.
 
     ``k`` is (MK, NK, C), each channel with its own kernel, or (MK, NK),
@@ -153,7 +211,7 @@ def convolve_rgb(a: torch.Tensor, k: torch.Tensor, mode: str = "same") -> torch.
     if k.ndim == 2:
         k = k.unsqueeze(-1).expand(*k.shape, a.shape[-1])
     out = conv_planar(
-        a.permute(2, 0, 1).contiguous(), k.permute(2, 0, 1).contiguous(), mode
+        a.permute(2, 0, 1).contiguous(), k.permute(2, 0, 1).contiguous(), mode, precision, method
     )
     return out.permute(1, 2, 0)
 

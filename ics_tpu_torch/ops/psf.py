@@ -3,14 +3,17 @@
 ``normalize_kernel`` clamps negative taps to zero and makes each channel sum
 to 1 (ref lib/deconvolution.pyx:47-75); ``rotate_180`` flips both spatial
 axes.  Both take the JAX package's (MK, MK) or (MK, MK, C) layout;
+``normalize_kernel_np`` is the host-side NumPy variant, copied from
+ics_tpu/ops/psf.py:32-37 (the port never imports ``ics_tpu``);
 ``project_planar`` is the solvers' PSF projection on planar (C, MK, MK).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["normalize_kernel", "rotate_180", "project_planar"]
+__all__ = ["normalize_kernel", "normalize_kernel_np", "rotate_180", "project_planar"]
 
 
 def normalize_kernel(kern: torch.Tensor, mk: int | None = None) -> torch.Tensor:
@@ -23,6 +26,14 @@ def normalize_kernel(kern: torch.Tensor, mk: int | None = None) -> torch.Tensor:
     if kern.ndim == 2:
         return kern / torch.sum(kern)
     return kern / torch.sum(kern, dim=(0, 1), keepdim=True)
+
+
+def normalize_kernel_np(kern: np.ndarray) -> np.ndarray:
+    """Host-side (NumPy) variant for pipeline setup code."""
+    kern = np.maximum(kern, 0.0)
+    if kern.ndim == 2:
+        return kern / kern.sum()
+    return kern / kern.sum(axis=(0, 1), keepdims=True)
 
 
 def rotate_180(array: torch.Tensor) -> torch.Tensor:

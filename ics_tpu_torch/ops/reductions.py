@@ -1,15 +1,55 @@
-"""Residual-whiteness weight window (host-side NumPy).
+"""Whole-tensor scalar reductions and the residual-whiteness weight window
+(counterpart of ics_tpu/ops/reductions.py).
 
-Copied from ics_tpu/ops/reductions.py:53-65: the port never imports
-``ics_tpu``, whose package import loads JAX.  The solver's variances use
-``correction=0`` (ddof 0, as ``jnp.std``); ``torch.std`` defaults to 1.
+The reductions are the reference's nogil mean / variance / amax / amax-abs /
+L1 / L2 norms over flat float buffers (lib/deconvolution.pyx:255-338), each
+one 0-d tensor on its input's own device.  ``whiteness_weights`` is
+host-side NumPy, copied from ics_tpu/ops/reductions.py:53-65: the port never
+imports ``ics_tpu``, whose package import loads JAX.  The solver's
+variances use ``correction=0`` (ddof 0, as ``jnp.std``); ``torch.std``
+defaults to 1.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["whiteness_weights"]
+__all__ = [
+    "mean",
+    "variance",
+    "amax",
+    "amaxabs",
+    "array_norm_L1",
+    "array_norm_L2",
+    "whiteness_weights",
+]
+
+
+def mean(a: torch.Tensor) -> torch.Tensor:
+    return torch.mean(a)
+
+
+def variance(a: torch.Tensor, m: torch.Tensor | None = None) -> torch.Tensor:
+    if m is None:
+        m = torch.mean(a)
+    return torch.mean((m - a) ** 2)
+
+
+def amax(a: torch.Tensor) -> torch.Tensor:
+    return torch.amax(a)
+
+
+def amaxabs(a: torch.Tensor) -> torch.Tensor:
+    return torch.amax(torch.abs(a))
+
+
+def array_norm_L2(a: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(a * a))
+
+
+def array_norm_L1(a: torch.Tensor) -> torch.Tensor:
+    return torch.sum(torch.abs(a))
 
 
 def whiteness_weights(height: int, width: int) -> np.ndarray:

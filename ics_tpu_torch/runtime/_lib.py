@@ -3,8 +3,10 @@
 The sources under ``src/`` have a plain C interface.  One host C++ compiler
 call builds them into a shared library at first use (never at import), in
 a directory keyed by a hash of the sources, the compiler and the flags,
-under the ``_build/`` directory that also holds the CUDA kernels
-(``ics_tpu_torch/_build.py``) and that ``.gitignore`` lists.  No CMake and
+under the directory that also holds the CUDA kernels
+(``ics_tpu_torch/_build.py::build_dir``: ``ics_tpu_torch/_build/``, which
+``.gitignore`` lists, unless ``utils.cache.enable_persistent_cache`` named
+another).  No CMake and
 no ninja: a host compiler is all the build needs.
 
 The compiler is ``$CXX``, else ``c++``, else ``g++``.  Without one,
@@ -26,10 +28,11 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["compiler", "build", "load", "build_seconds"]
+from ics_tpu_torch import _build
+
+__all__ = ["compiler", "build", "load", "loaded", "build_seconds"]
 
 _SRC = Path(__file__).resolve().parent / "src"
-_BUILD = Path(__file__).resolve().parents[1] / "_build"
 _FLAGS = ["-std=c++17", "-O3", "-fno-exceptions", "-fvisibility=hidden", "-fPIC",
           "-shared", "-pthread"]
 _NAME = "libics_runtime.so"
@@ -77,12 +80,14 @@ def _digest(sources: list[Path], cxx: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def build(src_dir=_SRC, out_root=_BUILD) -> Path:
+def build(src_dir=_SRC, out_root=None) -> Path:
     """Compile every ``*.cpp`` of ``src_dir`` into one shared library under
-    ``out_root`` (once per hash) and return its path.  Raises
-    ``RuntimeError`` with the compiler's output when the compile fails, and
-    when there is no compiler."""
+    ``out_root`` (default ``_build.build_dir()``; once per hash) and return
+    its path.  Raises ``RuntimeError`` with the compiler's output when the
+    compile fails, and when there is no compiler."""
     global build_seconds
+    if out_root is None:
+        out_root = _build.build_dir()
     cxx = compiler()
     sources = _sources(src_dir)
     if not sources:
@@ -103,6 +108,11 @@ def build(src_dir=_SRC, out_root=_BUILD) -> Path:
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
     build_seconds = time.perf_counter() - t0
     return so
+
+
+def loaded() -> bool:
+    """Whether this process has loaded the runtime library."""
+    return _lib is not None
 
 
 def load() -> ctypes.CDLL | None:

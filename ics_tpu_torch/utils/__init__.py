@@ -1,8 +1,9 @@
 """Generic utilities (counterpart of ics_tpu/utils/__init__.py; reference
 lib/utils.py): window generators, filters (bilateral / bessel / gaussian /
-USM), blending, colour operators, ``timeit`` and TIFF I/O, re-exported under
-the JAX package's names; plus resize, tracing and ``metrics`` (SSIM, PSNR).
-``enable_persistent_cache`` (the XLA compile cache) has no counterpart."""
+USM), blending, colour operators, ``timeit``, TIFF I/O and
+``enable_persistent_cache`` (the directory of the port's builds), re-exported
+under the JAX package's names; plus resize, tracing and ``metrics`` (SSIM,
+PSNR)."""
 
 from ics_tpu_torch.ops.windows import (
     uniform_kernel,
@@ -37,6 +38,7 @@ from ics_tpu_torch.utils.color import (
     hsv_to_rgb,
 )
 from ics_tpu_torch.utils.io import save, load_image, imread, imread_sequence, imsave
+from ics_tpu_torch.utils.cache import enable_persistent_cache
 
 __all__ = [
     "uniform_kernel",
@@ -70,4 +72,5 @@ __all__ = [
     "imread",
     "imsave",
     "imread_sequence",
+    "enable_persistent_cache",
 ]

@@ -161,6 +161,10 @@ def _bound(nbytes: float, ops: float, kind: str, sfu: float = 0.0) -> dict:
 # ------------------------------------------------------------ certification
 REL_TOL = 1e-5  # max |kernel - twin| / max |twin|; the sum order differs
 LIB_TOL = 1e-3  # the library call against the twin: cuDNN picks its own algorithm
+# K4h against its float64 twin: above K4h's own readings (2.0-3.5e-7 of the
+# largest value on an H100) and below K4s's bf16x3 on the same twin, so a
+# kernel that drops HIGHEST's extra products fails
+HIGHEST_TOL = 7e-7
 
 
 class _Fault(Exception):
@@ -402,58 +406,82 @@ class _Certify:
                 self.lib_agrees(f"K3 {tag}", lib_fn(), ref)
         self.rows.setdefault("K3", {})["max_abs_err"] = worst
 
+    # name: (wrapper in ops/cuda_conv_mma.py, operand dtype, bound against
+    # the twin relative to its largest value (None: one bf16 ulp of each
+    # value), bf16 products per tap, cases)
+    K4_CASES = [
+        ("24MP 9x9 valid", (3, 4012, 6012), 9, 9, "valid", 5),
+        ("24MP 9x9 full", (3, 4004, 6004), 9, 9, "full", 5),
+        ("520^2 9x9 valid", (3, 520, 520), 9, 9, "valid", 20),
+        ("369^2 7x7 valid", (3, 369, 369), 7, 7, "valid", 20),
+        ("odd width 2837x4251 9x9 full", (3, 2837, 4251), 9, 9, "full", 5),
+    ]
+    F32_CASES = [
+        ("24MP 9x9 valid", (3, 4012, 6012), 9, 9, "valid", 5),
+        ("24MP 9x9 full", (3, 4004, 6004), 9, 9, "full", 5),
+        ("520^2 9x9 valid", (3, 520, 520), 9, 9, "valid", 20),
+        *((f"odd 77x141 9x9 {mode}", (3, 77, 141), 9, 9, mode, 20)
+          for mode in ("valid", "same", "full")),
+        ("odd 45x101 31x29 same", (3, 45, 101), 31, 29, "same", 20),
+    ]
+    K4_VARIANTS = {
+        "K4s": ("conv_split", "float32", REL_TOL, 3, K4_CASES),
+        "K4": ("conv_bf16", "bfloat16", None, 1, K4_CASES),
+        "K4h": ("conv_highest", "float32", HIGHEST_TOL, 6, F32_CASES),
+        "K4d": ("conv_default", "float32", 1e-6, 1, F32_CASES),
+    }
+
     def k4(self):
-        """K4s and K4 at the 24 MP non-blind shapes, the 520^2 op-loop window
-        (what K4s takes under 'high'), the 369^2 7x7 window and a plane of
-        odd width (a pyramid level's size; K4 stages it with plain loads)."""
+        """K4s, K4, K4h and K4d at the 24 MP non-blind shapes; K4s and K4 also
+        at the 520^2 op-loop window (what K4s takes under 'high'), the 369^2
+        7x7 window and a plane of odd width (a pyramid level's size; K4
+        stages it with plain loads); K4h and K4d at the 520^2 window and
+        small planes of odd width in every mode, up to 31x29 taps.  K4h's
+        and K4d's twins sum in float64.  The
+        library call beside K4h is cuDNN's f32 convolution (TF32 off), beside
+        K4d the same on the operands rounded to bf16."""
         from ics_tpu_torch.ops import cuda_conv_mma
 
         torch = self.torch
-        for name in ("K4s", "K4"):
+        for name, (fn, dtype, tol, products, cases) in self.K4_VARIANTS.items():
+            kern, plain = getattr(cuda_conv_mma, fn), getattr(cuda_conv_mma, f"{fn}_plain")
             worst = 0.0
-            for label, shape, mk, mode, reps in [
-                ("24MP 9x9 valid", (3, 4012, 6012), 9, "valid", 5),
-                ("24MP 9x9 full", (3, 4004, 6004), 9, "full", 5),
-                ("520^2 9x9 valid", (3, 520, 520), 9, "valid", 20),
-                ("369^2 7x7 valid", (3, 369, 369), 7, "valid", 20),
-                ("odd width 2837x4251 9x9 full", (3, 2837, 4251), 9, "full", 5),
-            ]:
-                a = self.rand(shape)
-                k = self.t(self.rng.uniform(0.05, 1.0, (3, mk, mk)))
-                if name == "K4s":
-                    kern, plain = cuda_conv_mma.conv_split, cuda_conv_mma.conv_split_plain
-                else:
-                    a, k = a.bfloat16(), k.bfloat16()
-                    kern, plain = cuda_conv_mma.conv_bf16, cuda_conv_mma.conv_bf16_plain
+            for label, shape, mk, nk, mode, reps in cases:
+                a = self.rand(shape).to(getattr(torch, dtype))
+                k = self.t(self.rng.uniform(0.05, 1.0, (3, mk, nk))).to(getattr(torch, dtype))
                 got, again = _twice(torch, f"{name} {label}", lambda: kern(a, k, mode))
                 ref = plain(a, k, mode)
                 err, rel = _rel(torch, got, ref)
                 first = label == "24MP 9x9 valid"
-                if name == "K4s":
-                    bound, ok, detail = f"within {REL_TOL:g} of its twin", rel <= REL_TOL, \
-                        f"rel {rel:.3e}"
-                else:
+                if tol is None:
                     ulps = _ulps(torch, got, ref)
                     bound, ok, detail = "within one bf16 ulp of its twin", ulps <= 1.0, \
                         f"{ulps:.2f} bf16 ulp"
+                else:
+                    bound, ok, detail = f"within {tol:g} of its twin", rel <= tol, f"rel {rel:.3e}"
                 line = f"{name} {label}: max_abs_err {err:.3e} {detail}"
+                # K4d's library call: the same convolution of the rounded operands
+                la, lk = (a.bfloat16().float(), k.bfloat16().float()) if name == "K4d" else (a, k)
                 ms, plain_ms, lib, dev_ms = _time_turns(
                     torch, lambda: kern(a, k, mode), lambda: plain(a, k, mode),
-                    self.lib_conv(a, k) if first else None, reps)
+                    self.lib_conv(la, lk) if first else None, reps)
                 line += (f"; kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms"
                          + (f", library conv2d {lib:.4f} ms" if first else ""))
                 if first:
-                    # K4s: three bf16 products of the f32 operands' halves
-                    # (the function is the f32 conv); K4: one, on bf16 operands
-                    itemsize, products = (4, 3) if name == "K4s" else (2, 1)
+                    # bf16 products of the operands' slices per tap: the
+                    # function is the f32 conv for K4s and K4h, the conv of
+                    # the bf16-rounded operands for K4d, the bf16 conv for K4
+                    itemsize = 2 if dtype == "bfloat16" else 4
                     self.rows[name] = dict(
                         ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib,
                         **self.conv_bound(shape, mk, itemsize, "bf16", products))
                 self.report(line)
                 self.check(ok, f"{name} {label} {bound}")
                 self.check(torch.equal(got, again), f"{name} {label} bitwise reproducible")
+                if first and name in ("K4h", "K4d"):
+                    self.lib_agrees(f"{name} {label}", self.lib_conv(la, lk)()[0], ref)
                 worst = max(worst, err)
-                del a, got, again, ref
+                del a, got, again, ref, la, lk
             self.rows.setdefault(name, {})["max_abs_err"] = worst
 
     def k5(self):
@@ -636,11 +664,12 @@ def certify_kernels(report=print, device="cuda", rows: dict | None = None) -> bo
 
 # ------------------------------------------------------------- benchmarks
 def bench_conv_backends(shapes=((2048, 3072), (4005, 6005)), mk=9,
-                        methods=("K1", "K4s", "K4", "cudnn"), n_iter=20, reps=3,
+                        methods=("K1", "K4s", "K4", "K4h", "K4d", "cudnn"), n_iter=20, reps=3,
                         report=print, device="cuda"):
     """ms per call of the 'same'-mode mk x mk per-channel conv on a
-    ``make_scene`` frame: K1 on f32, K4s (precision 'high'), K4 (bf16) and
-    cuDNN's grouped ``conv2d`` in f32 with TF32 off (the yardstick).  Each
+    ``make_scene`` frame: K1 on f32, K4s (precision 'high'), K4 (bf16), K4h
+    and K4d (f32 through 'pallas_mxu' at 'exact' and 'fast') and cuDNN's
+    grouped ``conv2d`` in f32 with TF32 off (the yardstick).  Each
     is timed as a chain of ``n_iter`` calls, every call taking the last
     one's output, between two CUDA events with one sync at the end; the
     best of ``reps`` chains.  Returns {(h, w, method): ms}."""
@@ -658,6 +687,8 @@ def bench_conv_backends(shapes=((2048, 3072), (4005, 6005)), mk=9,
         "K1": (torch.float32, lambda a, k: cuda_conv.conv_planar(a, k, "same")),
         "K4s": (torch.float32, lambda a, k: cuda_conv_mma.conv_split(a, k, "same")),
         "K4": (torch.bfloat16, lambda a, k: cuda_conv_mma.conv_bf16(a, k, "same")),
+        "K4h": (torch.float32, lambda a, k: cuda_conv_mma.conv_highest(a, k, "same")),
+        "K4d": (torch.float32, lambda a, k: cuda_conv_mma.conv_default(a, k, "same")),
         "cudnn": (torch.float32, lambda a, k: F.conv2d(
             a[None], torch.flip(k, (1, 2))[:, None], padding=mk // 2, groups=3)[0]),
     }

@@ -151,7 +151,7 @@ def test_cuda_is_the_default_device_for_host_inputs():
 
 
 def test_utils_exports_the_jax_names():
-    jax_names = set(jutils.__all__) - {"enable_persistent_cache"}
+    jax_names = set(jutils.__all__)
     assert jax_names <= set(tutils.__all__)
     for name in jax_names:
         assert callable(getattr(tutils, name)) or isinstance(getattr(tutils, name), type)

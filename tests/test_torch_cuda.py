@@ -12,6 +12,7 @@ import torch
 
 from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
                                cuda_solver, cuda_tv)
+from ics_tpu_torch.utils.selftest import HIGHEST_TOL
 
 
 def _need_gpu():
@@ -492,6 +493,150 @@ def test_one_rank_nccl_mesh_on_gpu():
         dist.destroy_process_group()
 
 
+# K4h and K4d: the f32 instances of pallas_conv_mxu.py::_make_kernel at
+# HIGHEST and DEFAULT, each held to its twin (the f32 convolution; the
+# convolution of the bf16-rounded operands; both summed in float64) relative
+# to its largest value, K4h at the certification's bound
+_F32_VARIANTS = {
+    "K4h": ("conv_highest", "highest", HIGHEST_TOL),
+    "K4d": ("conv_default", "default", 1e-6),
+}
+
+
+def _f32_variant_case(dev, name, shape, mk, nk, mode):
+    fn, counter, tol = _F32_VARIANTS[name]
+    kern, plain = getattr(cuda_conv_mma, fn), getattr(cuda_conv_mma, f"{fn}_plain")
+    gen = torch.Generator().manual_seed(shape[1] * 1000 + shape[2] + mk * 31 + nk)
+    a = torch.rand(shape, generator=gen).to(dev)
+    k = torch.rand((shape[0], mk, nk), generator=gen).to(dev)
+    before = getattr(cuda_conv_mma, f"{counter}_launches")
+    got = kern(a, k, mode)
+    assert getattr(cuda_conv_mma, f"{counter}_launches") == before + 1
+    ref = plain(a, k, mode)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert torch.equal(got, kern(a, k, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["valid", "same", "full"])
+@pytest.mark.parametrize("mk,nk", [(3, 3), (5, 5), (7, 7), (9, 9), (2, 1), (5, 3), (9, 7),
+                                   (3, 5), (5, 8), (11, 13), (17, 17), (29, 31), (31, 31)])
+@pytest.mark.parametrize("shape", [(3, 77, 141), (2, 130, 203), (1, 40, 35)])
+@pytest.mark.parametrize("name", ["K4h", "K4d"])
+def test_k4h_k4d_match_twins_on_gpu(name, shape, mk, nk, mode):
+    """The unrolled (3, 5, 7, 9) and run-time instances up to 31x31 on
+    planes of odd width, not a multiple of the 64-column tile, and smaller
+    than one tile; within 7e-7 (K4h) and 1e-6 (K4d) of the largest value of
+    the twin, and bitwise equal on a second run."""
+    _f32_variant_case(_need_gpu(), name, shape, mk, nk, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mk,nk", [((1, 5, 4), 9, 9), ((3, 6, 7), 31, 31),
+                                         ((3, 2, 3), 3, 5)])
+@pytest.mark.parametrize("name", ["K4h", "K4d"])
+def test_k4h_k4d_planes_smaller_than_kernel_on_gpu(name, shape, mk, nk):
+    _f32_variant_case(_need_gpu(), name, shape, mk, nk, "full")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["valid", "full"])
+@pytest.mark.parametrize("mk", [3, 9, 13])
+@pytest.mark.parametrize("name", ["K4h", "K4d"])
+def test_k4h_k4d_ring_tail_on_gpu(name, mk, mode):
+    """Blocks walk several tiles through the two-slot ring, with a ragged
+    last turn and channels that change between a block's tiles."""
+    dev = _need_gpu()
+    c, h, w = 3, 1000, 2200
+    ho, wo = (h - mk + 1, w - mk + 1) if mode == "valid" else (h + mk - 1, w + mk - 1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = cuda_conv_mma.geometry(cuda_conv_mma.VARIANTS[name], c, ho, wo, mk, mk, sms)
+    assert g.n_tiles > g.grid and g.n_tiles % g.grid != 0
+    _f32_variant_case(dev, name, (c, h, w), mk, mk, mode)
+
+
+def _launches():
+    return {"K1": cuda_conv.launches, "K4s": cuda_conv_mma.split_launches,
+            "K4": cuda_conv_mma.bf16_launches, "K4h": cuda_conv_mma.highest_launches,
+            "K4d": cuda_conv_mma.default_launches}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,precision,bf16,side,want", [
+    ("auto", "exact", False, 9, "K1"), ("auto", "bf16x3", False, 9, "K4s"),
+    ("auto", "bf16x3", False, 7, "K1"), ("auto", "fast", False, 9, "K1"),
+    ("auto", "exact", True, 9, "K4"), ("auto", "exact", False, 33, None),
+    ("pallas_mxu", "exact", False, 9, "K4h"), ("pallas_mxu", "fast", False, 9, "K4d"),
+    ("pallas_mxu", "bf16x3", False, 9, "K4s"), ("pallas_mxu", "exact", True, 9, "K4"),
+    ("pallas_mxu", "exact", False, 5, "K4h"), ("pallas_mxu", "exact", False, 33, None),
+    ("mxu", "exact", False, 9, "K4h"), ("mxu", "fast", False, 3, "K4d"),
+    ("mxu", "exact", True, 9, "K4"),
+    ("pallas", "exact", False, 9, "K1"), ("pallas", "fast", False, 9, "K1"),
+    ("pallas", "exact", True, 9, "K4"), ("pallas", "exact", False, 33, None),
+    ("stencil", "exact", False, 5, "K1"), ("stencil", "exact", True, 5, "K4"),
+    ("direct", "exact", False, 9, None), ("direct", "exact", True, 9, None),
+    ("fft", "exact", False, 9, None),
+])
+def test_conv_method_routes_on_gpu(method, precision, bf16, side, want):
+    """Each method's route on CUDA tensors, read from the launch counters:
+    one launch of the kernel it names and none of the others (None: cuDNN
+    or cuFFT); the result within the route's tolerance of the exact f32
+    convolution (2e-2 where the operands are bf16 or bf16-rounded)."""
+    from ics_tpu_torch.ops.conv import conv_planar
+
+    dev = _need_gpu()
+    gen = torch.Generator().manual_seed(side)
+    a = torch.rand((3, 70, 133), generator=gen).to(dev)
+    k = torch.rand((3, side, side), generator=gen).to(dev)
+    ref = cuda_conv.conv_planar_plain(a, k, "same")
+    if bf16:
+        a, k = a.bfloat16(), k.bfloat16()
+    before = _launches()
+    got = conv_planar(a, k, "same", precision, method)
+    after = _launches()
+    assert {n: after[n] - before[n] for n in after} == {n: int(n == want) for n in after}
+    rounded = bf16 or (precision == "fast" and method in ("pallas_mxu", "mxu"))
+    tol = 2e-2 if rounded else 1e-4
+    assert float((got.float() - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,precision,want,not_want", [
+    ("auto", "exact", "K1", ("K4h", "K4d")),
+    ("pallas_mxu", "exact", "K4h", ("K1", "K4d")),
+    ("pallas_mxu", "fast", "K4d", ("K1", "K4h")),
+])
+def test_solver_conv_method_routes_on_gpu(method, precision, want, not_want):
+    """A non-blind op-loop solve (``inner_loop='xla'``: K2 would take this
+    window and run its own convolutions) with each method: 'auto' keeps its
+    K1 route, 'pallas_mxu' runs K4h or K4d and no K1; u within 1e-5 (exact)
+    or 2e-2 (fast) of the 'auto' run."""
+    import numpy as np
+
+    from ics_tpu_torch.models.rl_mm import RLConfig, richardson_lucy_MM
+    from ics_tpu_torch.utils.selftest import make_scene
+
+    dev = _need_gpu()
+    img = make_scene(120, 130, 9, seed=5)[1].astype(np.float32) / 255.0
+    u0 = np.pad(img, ((4, 4), (4, 4), (0, 0)), mode="edge")
+    psf = np.ones((9, 9, 3), np.float32) / 81.0
+
+    def run(cfg):
+        return richardson_lucy_MM(img, u0, psf, 4, 116, 4, 126, 1e9, iterations=4,
+                                  step_factor=1e-3, lambd=1e4, blind=False, config=cfg,
+                                  verbose=False, device=dev)
+
+    ref = run(RLConfig(inner_loop="xla"))
+    before = _launches()
+    got = run(RLConfig(inner_loop="xla", conv_method=method, conv_precision=precision))
+    after = _launches()
+    assert after[want] > before[want]
+    assert all(after[n] == before[n] for n in not_want)
+    tol = 2e-2 if precision == "fast" else 1e-5
+    assert float((got.u - ref.u).abs().max()) <= tol * float(ref.u.abs().max())
+
+
 @pytest.mark.cuda
 def test_certify_kernels_passes_on_gpu():
     """utils.selftest.certify_kernels: K1-K6 at the 24 MP shapes, the K2
@@ -504,11 +649,12 @@ def test_certify_kernels_passes_on_gpu():
         line for line in lines if "FAIL" in line or "ERROR" in line)
     assert lines[-1].split(": ")[-1].endswith("checks passed")
     keys = {"ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err"}
-    assert set(rows) == {"K1", "K2", "K3", "K4s", "K4", "K5", "K6"}
+    assert set(rows) == {"K1", "K2", "K3", "K4s", "K4", "K4h", "K4d", "K5", "K6"}
     assert all(set(row) == keys for row in rows.values())
-    # the library calls timed beside K1 and K3 are held against the twins
+    # the library calls timed beside K1, K3, K4h and K4d are held against
+    # the twins
     agree = [line for line in lines if "the library call computes the same function" in line]
-    assert [line.split()[2] for line in agree] == ["K1", "K3"]
+    assert [line.split()[2] for line in agree] == ["K1", "K3", "K4h", "K4d"]
 
 
 @pytest.mark.cuda
@@ -516,12 +662,12 @@ def test_bench_conv_backends_on_gpu():
     from ics_tpu_torch.utils.selftest import bench_conv_backends
 
     _need_gpu()
-    before = (cuda_conv.launches, cuda_conv_mma.split_launches, cuda_conv_mma.bf16_launches)
+    before = _launches()
     got = bench_conv_backends(shapes=((257, 383),), n_iter=3, reps=1, report=lambda line: None)
-    after = (cuda_conv.launches, cuda_conv_mma.split_launches, cuda_conv_mma.bf16_launches)
-    assert sorted(m for _, _, m in got) == ["K1", "K4", "K4s", "cudnn"]
+    after = _launches()
+    assert sorted(m for _, _, m in got) == ["K1", "K4", "K4d", "K4h", "K4s", "cudnn"]
     assert all(ms > 0 for ms in got.values())
-    assert all(a > b for a, b in zip(after, before))
+    assert all(after[n] > before[n] for n in after)
 
 
 @pytest.mark.cuda

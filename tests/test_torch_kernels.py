@@ -382,3 +382,37 @@ def test_k6_folded_constants_reproduce_the_twin(radius, std_i, scale):
             den = den + wgt
     ref = cb.bilateral_planar_plain(src, radius, std_i, 5.0)
     assert float((num / den - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("mk", range(1, cuda_conv_mma.MAX_TAPS_SIDE + 1))
+@pytest.mark.parametrize("variant", ["K4h", "K4d"])
+def test_k4h_k4d_geometry_fits_the_card(variant, mk):
+    """K4h (three slice tiles, 16-byte B entries) and K4d (one slice tile,
+    8-byte entries) fit one block in shared memory at every tap size up to
+    31x31, and their persistent walk covers every output once."""
+    code = cuda_conv_mma.VARIANTS[variant]
+    for nk in range(1, cuda_conv_mma.MAX_TAPS_SIDE + 1):
+        for c, ho, wo in _K4_SHAPES:
+            g = cuda_conv_mma.geometry(code, c, ho, wo, mk, nk, 132)
+            assert g.smem == cuda_conv_mma.smem_bytes(code, g.inst, g.tile_rows, mk, nk)
+            assert g.smem <= cuda_conv_mma.SMEM_OPT_IN
+            assert g.smem + 1024 <= cuda_conv_mma.SMEM_PER_SM
+            assert 1 <= g.grid <= g.n_tiles
+    g = cuda_conv_mma.geometry(code, 3, 1000, 2200, mk, mk, 132)
+    assert np.array_equal(_k4_walk(g, 3, 1000, 2200), np.ones((3, 1000, 2200), np.int32))
+
+
+@pytest.mark.parametrize("variant,slices,entry", [("K4s", 2, 16), ("K4h", 3, 16), ("K4d", 1, 8)])
+def test_f32_variants_shared_memory(variant, slices, entry):
+    """The f32 variants' block: two f32 ring slots and two slots of their
+    bf16 slice tiles (4 + 2 * slices bytes per staged value, twice), and two
+    B tables of 32 lanes' entries per tap row and k-step; K4s's matches the
+    split flag's formula of before (16 bytes per value)."""
+    code = cuda_conv_mma.VARIANTS[variant]
+    for mk, nk, tile_rows in [(9, 9, 64), (31, 31, 16), (5, 17, 32)]:
+        plane = (tile_rows + mk - 1) * (56 + 16 * ((8 + nk - 1 + 15) // 16))
+        table = mk * ((8 + nk - 1 + 15) // 16) * 32 * entry
+        want = 2 * (4 + 2 * slices) * plane + 2 * table
+        assert cuda_conv_mma.smem_bytes(code, 0, tile_rows, mk, nk) == want
+    assert cuda_conv_mma.smem_bytes(True, 0, 64, 9, 9) == \
+        cuda_conv_mma.smem_bytes(cuda_conv_mma.VARIANTS["K4s"], 0, 64, 9, 9)

@@ -274,7 +274,9 @@ def test_conv_precision_high_matches_jax_high(blind):
         (dict(use_tv=True, tv_norm="l1"), ValueError, "tv_norm"),
         (dict(dtype="float16"), ValueError, "dtype"),
         (dict(psf_grad="fft"), ValueError, "psf_grad"),
-        (dict(conv_method="direct"), NotImplementedError, "ROADMAP"),
+        # every JAX method runs (tests/test_torch_conv_methods.py); an
+        # unknown one raises, as ics_tpu/ops/conv.py:450 does
+        (dict(conv_method="bogus"), ValueError, "conv_method"),
     ],
 )
 def test_bad_solver_options_raise(cfg, err, match):

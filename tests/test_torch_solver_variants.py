@@ -131,9 +131,14 @@ def test_configs_have_the_jax_fields_and_defaults(port, jax_cls):
 
 
 def test_pam_conv_method_other_than_auto_raises():
-    with pytest.raises(NotImplementedError, match="conv_method"):
+    """A method outside JAX's seven raises ``ValueError``; the seven run
+    (tests/test_torch_conv_methods.py holds them against JAX)."""
+    with pytest.raises(ValueError, match="conv_method"):
         tpam.richardson_lucy_PAM(IMAGE, U, PSF, *WIN.values(), 0.0, iterations=1,
-                                 config=tpam.PAMConfig(conv_method="fft"), device="cpu")
+                                 config=tpam.PAMConfig(conv_method="bogus"), device="cpu")
+    res = tpam.richardson_lucy_PAM(IMAGE, U, PSF, *WIN.values(), 0.0, iterations=1,
+                                   config=tpam.PAMConfig(conv_method="fft"), device="cpu")
+    assert res.iterations == 1 and bool(torch.isfinite(res.u).all())
 
 
 @pytest.mark.parametrize("name", ["pam", "pd"])
