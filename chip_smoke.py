@@ -105,6 +105,7 @@ numbers as JSON.  Imports neither JAX nor ``ics_tpu``; needs a CUDA GPU.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -908,7 +909,7 @@ def _batteries(dev) -> None:
 
     _zero_counters()
     t0 = time.perf_counter()
-    selftest.bench_conv_backends(report=print, device=dev)
+    selftest.bench_conv_backends(report=print, device=dev, kernels=selftest.CONV_BENCH_KERNELS)
     counts = _counters()
     print(f"conv bench: {time.perf_counter() - t0:.1f} s, launches {json.dumps(counts)}")
     _require(all(counts[k] > 0 for k in ("K1", "K4s", "K4", "K4h", "K4d")),
@@ -1095,6 +1096,44 @@ def phase_conv_methods(torch, dev, pic19, pic24) -> dict:
     return launches
 
 
+def _run_device_seconds(torch, dev, pic24, kid: str, first, **cfg) -> None:
+    """The 24 MP 20-outer run of ``cfg`` again, counting the launches of
+    ``kid`` (K4h or K4d) by shape: its device seconds in the run are each
+    shape's launches times that shape's device time alone
+    (``selftest._median_ms``, the card kept busy ahead of each timed call;
+    the kernel's time does not depend on the data).  The run must give
+    ``first``'s u.  (torch.profiler missed a few of these kernels now and
+    then, so it does not count them here.)"""
+    from ics_tpu_torch.ops import cuda_conv_mma
+
+    name = {"K4h": "conv_highest", "K4d": "conv_default"}[kid]
+    inner = getattr(cuda_conv_mma, name)
+    shapes = collections.Counter()
+
+    def counted(a, k, mode):
+        shapes[(tuple(a.shape), tuple(k.shape), mode)] += 1
+        return inner(a, k, mode)
+
+    setattr(cuda_conv_mma, name, counted)
+    try:
+        again, counts, _ = _rl(torch, dev, pic24, 9, **cfg)
+    finally:
+        setattr(cuda_conv_mma, name, inner)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    seconds, parts = 0.0, []
+    for (a_shape, k_shape, mode), n in sorted(shapes.items()):
+        a = torch.rand(a_shape, device=dev, generator=gen)
+        k = torch.rand(k_shape, device=dev, generator=gen)
+        ms = selftest._median_ms(torch, lambda: inner(a, k, mode), 5, device_only=True)
+        seconds += n * ms / 1e3
+        parts.append(f"{n} x {a_shape} {mode} at {ms:.4f} ms")
+        del a, k
+    label = f"24MP {' '.join(map(str, cfg.values()))}"
+    print(f"phase 9: {label}: {kid} {seconds:.4f} device s in the run ({'; '.join(parts)})")
+    _require(sum(shapes.values()) == counts[kid] > 0 and torch.equal(again.u, first.u),
+             f"{label} again: every {kid} launch counted by shape, the same u")
+
+
 def _conv_method_runs(torch, dev, pic19, pic24) -> dict:
     from ics_tpu_torch.utils import metrics
 
@@ -1110,6 +1149,7 @@ def _conv_method_runs(torch, dev, pic19, pic24) -> dict:
              "24 MP 'pallas_mxu' exact launches K4h and not K1")
     _require(rel <= 1e-5, "24 MP 'pallas_mxu' exact u within 1e-5 of 'auto'")
     launches["K4h"] = counts["K4h"]
+    _run_device_seconds(torch, dev, pic24, "K4h", got, conv_method="pallas_mxu")
     got, counts, wall = _rl(torch, dev, pic24, 9, conv_method="pallas_mxu",
                             conv_precision="fast")
     s = metrics.ssim(got.u.cpu().numpy(), ref.u.cpu().numpy(), device="cpu")
@@ -1119,6 +1159,8 @@ def _conv_method_runs(torch, dev, pic19, pic24) -> dict:
              "24 MP 'pallas_mxu' fast launches K4d and not K1")
     _require(s >= 0.999, "24 MP 'pallas_mxu' fast SSIM >= 0.999 against 'auto'")
     launches["K4d"] = counts["K4d"]
+    _run_device_seconds(torch, dev, pic24, "K4d", got, conv_method="pallas_mxu",
+                        conv_precision="fast")
     del ref, got
 
     # the 1.9 MP case's blind mask window (255^2 around [584, 795]), op loop
@@ -1137,6 +1179,16 @@ def _conv_method_runs(torch, dev, pic19, pic24) -> dict:
     _require(u_rel <= BLIND_U_TOL and psf_rel <= BLIND_PSF_TOL,
              f"1.9 MP blind 'pallas_mxu' u within {BLIND_U_TOL:g} and psf within "
              f"{BLIND_PSF_TOL:g} of 'auto'")
+    # 'high' under an explicit method is 'exact', as JAX's _dispatch has it
+    high, counts, wall = _rl(torch, dev, pic19, 7, blind=True, window=window,
+                             inner_loop="xla", conv_method="pallas_mxu", conv_precision="high")
+    same = torch.equal(high.u, got.u) and torch.equal(high.psf, got.psf)
+    print(f"phase 9: 1.9MP blind 255^2 window 'pallas_mxu' high: {wall:.3f} s, launches "
+          f"{json.dumps(counts)}, bitwise the exact run: {same}")
+    _require(counts["K4h"] > 0 and counts["K4s"] == 0,
+             "1.9 MP blind 'pallas_mxu' high launches K4h and no K4s")
+    _require(same, "1.9 MP blind 'pallas_mxu' high equals 'pallas_mxu' exact bit for bit")
+    del high, got
 
     # every other method, non-blind at 1.9 MP, against 'auto'
     ref, _, _ = _rl(torch, dev, pic19, 7)

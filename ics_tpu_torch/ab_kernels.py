@@ -1,6 +1,8 @@
-"""K3 and K6 of this tree against another tree's, in turns, on one GPU.
+"""K3 and K6, or the conv_mma family, of this tree against another tree's,
+in turns, on one GPU.
 
-    python -m ics_tpu_torch.ab_kernels OLD_TREE [--reps N]
+    python -m ics_tpu_torch.ab_kernels OLD_TREE [--reps N] [--family k3k6|conv_mma]
+                                       [--tree NAME=DIR ...]
 
 ``OLD_TREE`` is a checkout (or ``git archive``) of the commit to compare
 with.  The trees are OLD_TREE ("old"), this one ("new") and a copy of this
@@ -19,11 +21,21 @@ held against that tree's plain twin and called twice (bitwise).  Times come
 from this tree's ``utils/selftest.py::_median_ms``: ``ms`` as the smoke's kernels line reads
 it (the call's wrapper included) and ``device_ms`` (the GPU kept busy ahead
 of the start event, so only the kernel's device time).
+
+``--family conv_mma`` compares K4h, K4s, K4 and K4d (``csrc/conv_mma.cu``)
+instead, with no exp2f tree: turns old, new, new, old.  Each turn runs the
+four at the 24 MP phase-2 shape (9x9 valid on 3x4012x6012) and at 31x31
+'same' on 3x2000x3000, on the same seeded inputs, each against its tree's
+plain twin, called twice.  Every output is hashed: K4s's, K4's and K4d's
+must be the same in both trees, and each K4h's the same in every turn of
+its tree.  ``--tree NAME=DIR`` adds another checkout (a variant of this
+one, say) to the turns: old, new, then each added tree twice, new, old.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import shutil
@@ -36,7 +48,13 @@ import numpy as np
 _PKG = Path(__file__).resolve().parent
 _ROOT = _PKG.parent
 _APPROX = 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));\n  return y;'
-_TURNS = ["old", "new", "exp2f", "exp2f", "new", "old"]
+_TURNS = {"k3k6": ["old", "new", "exp2f", "exp2f", "new", "old"],
+          "conv_mma": ["old", "new", "new", "old"]}
+# conv_mma: (name, wrapper, operand dtype); the cases (label, shape, taps, mode)
+_CONV_MMA = [("K4h", "conv_highest", "float32"), ("K4s", "conv_split", "float32"),
+             ("K4", "conv_bf16", "bfloat16"), ("K4d", "conv_default", "float32")]
+_CONV_MMA_CASES = [("24MP 9x9 valid", (3, 4012, 6012), 9, "valid"),
+                   ("6MP 31x31 same", (3, 2000, 3000), 31, "same")]
 
 
 def _smoke():
@@ -77,8 +95,41 @@ def _import_tree(tree: Path):
     return ics_tpu_torch
 
 
-def _worker(tree: Path, reps: int, build_only: bool) -> None:
-    """One turn: time the tree's K3 and K6; the last line is JSON."""
+def _digest(torch, x) -> str:
+    """The output's bits, hashed (bf16 read as int16)."""
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+    return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _conv_mma_turn(torch, smoke, dev, reps: int) -> dict:
+    """The tree's K4h, K4s, K4 and K4d at ``_CONV_MMA_CASES``."""
+    from ics_tpu_torch.ops import cuda_conv_mma
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for label, shape, mk, mode in _CONV_MMA_CASES:
+        a32 = torch.rand(shape, device=dev, generator=gen) * 0.75 + 0.15
+        k32 = torch.rand((shape[0], mk, mk), device=dev, generator=gen) * 0.95 + 0.05
+        for name, fn, dtype in _CONV_MMA:
+            a, k = a32.to(getattr(torch, dtype)), k32.to(getattr(torch, dtype))
+            kern = getattr(cuda_conv_mma, fn)
+            got, again = kern(a, k, mode), kern(a, k, mode)
+            ref = getattr(cuda_conv_mma, f"{fn}_plain")(a, k, mode).float()
+            out[f"{name} {label}"] = dict(
+                rel=float((got.float() - ref).abs().max() / ref.abs().max()),
+                bitwise=bool(torch.equal(got, again)), hash=_digest(torch, got),
+                ms=smoke._median_ms(torch, lambda: kern(a, k, mode), reps),
+                device_ms=smoke._median_ms(torch, lambda: kern(a, k, mode), reps,
+                                           device_only=True),
+            )
+            del a, k, got, again, ref
+    return out
+
+
+def _worker(tree: Path, reps: int, build_only: bool, family: str = "k3k6") -> None:
+    """One turn: time the tree's K3 and K6 (or its conv_mma family); the
+    last line is JSON."""
     _import_tree(tree)
     from ics_tpu_torch import _build
 
@@ -95,6 +146,9 @@ def _worker(tree: Path, reps: int, build_only: bool) -> None:
     exact_f32()
     smoke = _smoke()
     dev = torch.device("cuda", 0)
+    if family == "conv_mma":
+        print(json.dumps(_conv_mma_turn(torch, smoke, dev, reps)))
+        return
     rng = np.random.default_rng(6)
     out = {}
 
@@ -138,18 +192,25 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("old_tree", nargs="?", type=Path)
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--family", choices=sorted(_TURNS), default="k3k6")
+    ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
+                    help="another tree in the turns (conv_mma)")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--build-only", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        _worker(args.worker, args.reps, args.build_only)
+        _worker(args.worker, args.reps, args.build_only, args.family)
         return 0
     if args.old_tree is None:
         ap.error("OLD_TREE is required")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {smi}", flush=True)
-    trees = {"old": args.old_tree.resolve(), "new": _ROOT, "exp2f": _exp2f_tree()}
+    trees = {"old": args.old_tree.resolve(), "new": _ROOT}
+    if args.family == "k3k6":
+        trees["exp2f"] = _exp2f_tree()
+    extra = dict(t.split("=", 1) for t in args.tree)
+    trees.update({k: Path(v).resolve() for k, v in extra.items()})
     builds = {k: subprocess.Popen(_worker_cmd(t, "--build-only"), stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
               for k, t in trees.items()}
@@ -159,16 +220,41 @@ def main(argv=None) -> int:
             raise SystemExit(f"build of {k} failed:\n{text}")
         print(f"build {k}: {text.strip().splitlines()[-1]}", flush=True)
     got: dict[str, dict[str, list[dict]]] = {}
-    for k in _TURNS:
-        for label, r in _last_json(_worker_cmd(trees[k], "--reps", str(args.reps))).items():
+    turns = _TURNS[args.family]
+    if extra:
+        turns = turns[:2] + [k for k in extra for _ in range(2)] + turns[2:]
+    for k in turns:
+        turn = _last_json(_worker_cmd(trees[k], "--reps", str(args.reps), "--family",
+                                      args.family))
+        for label, r in turn.items():
             got.setdefault(label, {}).setdefault(k, []).append(r)
     for label, by_tree in got.items():
         for k, rs in by_tree.items():
             print(f"{label} {k}: rel to twin {_series(rs, 'rel', '.3e')}; "
                   f"bitwise {all(r['bitwise'] for r in rs)}; ms {_series(rs, 'ms', '.4f')}; "
                   f"device_ms {_series(rs, 'device_ms', '.4f')}")
+    ok = True
+    if args.family == "conv_mma":
+        ok = _hashes_hold(got)
     print(f"card: {smi}")
-    return 0
+    return 0 if ok else 1
+
+
+def _hashes_hold(got: dict) -> bool:
+    """K4s, K4 and K4d give the same bits in every turn of both trees, K4h
+    in every turn of each tree; prints one line per case."""
+    ok = True
+    for label, by_tree in got.items():
+        hashes = {k: {r["hash"] for r in rs} for k, rs in by_tree.items()}
+        if label.startswith("K4h "):
+            hold = all(len(h) == 1 for h in hashes.values())
+            what = "the same bits in every turn of each tree"
+        else:
+            hold = len(set().union(*hashes.values())) == 1
+            what = "the same bits in both trees"
+        ok &= hold
+        print(f"{label}: {what}: {hold} ({json.dumps({k: sorted(h) for k, h in hashes.items()})})")
+    return ok
 
 
 def _series(rs: list[dict], key: str, fmt: str) -> str:

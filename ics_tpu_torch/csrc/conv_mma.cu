@@ -64,18 +64,26 @@
 //     walk is set once: no integer division per element.
 //   - A fragments come from ldmatrix.  The row stride (56 + 16 * steps bf16,
 //     an odd number of 16-byte units) puts the eight rows of each 8x8
-//     matrix in eight distinct bank groups.  Where NK <= 9 (one k-step) a
-//     warp walks its blocks with a rolling window: block b's A is the
-//     8-column groups b and b + 1, so each group is loaded once per tap row
-//     and serves two blocks.
+//     matrix in eight distinct bank groups.  Block b's A at k-step s is the
+//     8-column groups 2s + b and 2s + b + 1, so each group is loaded once
+//     per slice, tap row and k-step and serves two blocks.
 //   - B fragments depend only on the channel's taps: they are built once per
-//     block and channel.  K4's unrolled sizes (MK = NK in 3, 5, 7, 9) hold
-//     them in registers; the f32 variants and K4's run-time instance (up to
-//     31x31) read them from a shared table, one entry per tap row, k-step
-//     and lane: K4s its hi and lo pairs (16 bytes), K4 and K4d one bf16 pair
-//     (8 bytes), K4h the four f32 taps (16 bytes), sliced as they are read:
-//     three slices of pairs (24 bytes) in two tables would not fit 31x31 in
-//     shared memory beside the ring.
+//     block and channel, already sliced.  K4's unrolled sizes (MK = NK in 3,
+//     5, 7, 9) hold them in registers; the f32 variants and K4's run-time
+//     instance (up to 31x31) read them from one shared table, one bf16 pair
+//     per slice, tap row, k-step and lane (K4 and K4d 8 bytes an entry, K4s
+//     16, K4h 24).  The table is rebuilt between two barriers when a block's
+//     tile changes channel, which a persistent block does once or twice a
+//     launch: one table, not one per ring slot, keeps K4h's three slices
+//     beside the ring at 31x31.
+//   - A tap row runs slice by slice: one A slice's NB + 1 groups are loaded
+//     (ldmatrix.x4, two groups at a time) and every product that reads that
+//     slice runs on the NB blocks before the next slice is loaded.  So one A
+//     slice (10 registers for four blocks) and the B slices (6) are live at
+//     a time beside the accumulators, and K4h's instances do not spill.
+//     (wgmma m64n8k16, the warpgroup's products with B read from the table
+//     by descriptor, gave the same bits 1.5x slower at 9x9 and 3.4x at
+//     31x31 than these mma.sync products on an H100.)
 //   - Stores: the f32 variants write f32 pairs straight out (a warp
 //     instruction covers 8 rows x 32 bytes); K4 stages its bf16 outputs in
 //     shared memory and writes whole 128-byte rows.  Both write pairs where
@@ -84,14 +92,17 @@
 //     accumulator (the tensor cores truncate the f32 sums they carry; at
 //     31x31 one chained accumulator drifted by 1.5e-5 of the result), added
 //     to the total in round-to-nearest, tap rows in order; every product
-//     keeps its place in its m16n8k16 step.  K4h keeps hi*hi in an
-//     accumulator of its own, apart from the five small products (with all
-//     six chained in one, 18 truncating sums a tap row at 29x31 taps, it sat
-//     2.0e-6 of the largest value from its f32 twin; split, 1.7e-6 from
-//     that twin and 3.5e-7 from a float64 convolution, where the twin's own
-//     error is 1.7e-6).  So each output is summed by one
-//     thread in a fixed order: bitwise reproducible run to run, and K4s and
-//     K4 equal to the first version of this kernel bit for bit.
+//     keeps its place in its m16n8k16 step, and a block's products follow
+//     the A slice that they read (K4s hi*hi, hi*lo, lo*hi as before).  K4h
+//     keeps hi*hi in an accumulator of its own, apart from the five small
+//     products (with all six chained in one, 18 truncating sums a tap row at
+//     29x31 taps, it sat 2.0e-6 of the largest value from its f32 twin;
+//     split, 1.7e-6 from that twin and 3.5e-7 from a float64 convolution,
+//     where the twin's own error is 1.7e-6), which it sums smallest slice of
+//     A first: lo*hi, mid*mid, mid*hi, hi*lo, hi*mid.  So each output is
+//     summed by one thread in a fixed order: bitwise reproducible run to
+//     run, and K4s and K4 equal to the first version of this kernel bit for
+//     bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,10 +139,8 @@ __host__ __device__ constexpr int warps_across(int v) {
 __host__ __device__ constexpr int ring_slots(int v) { return f32_in(v) ? 2 : 3; }
 // accumulators per tap row: K4h sums hi*hi apart from its five small products
 __host__ __device__ constexpr int parts(int v) { return v == kHighest ? 2 : 1; }
-// bytes of one B table entry (tap row, k-step, lane)
-__host__ __device__ constexpr int entry_bytes(int v) {
-  return v == kSplit || v == kHighest ? 16 : 8;
-}
+// bytes of one B table entry (tap row, k-step, lane): a bf16 pair per slice
+__host__ __device__ constexpr int entry_bytes(int v) { return 8 * slices(v); }
 
 __host__ __device__ constexpr int ksteps(int nk) { return (8 + nk - 1 + 15) / 16; }
 // staged columns: the last block's last k-step reads up to 55 + 16 * steps
@@ -144,12 +153,12 @@ __host__ __device__ constexpr int table_bytes(int v, int inst, int mk, int nk) {
 
 // Dynamic shared memory of one block (ops/cuda_conv_mma.py::smem_bytes
 // computes the same), in planes of (tile_rows + mk - 1) x stage_w values:
-// the f32 variants two f32 ring slots and two slots of slice tiles, each
-// with a B table; K4 three bf16 ring slots, the staged outputs and, at
-// run-time sizes, a B table.
+// the f32 variants two f32 ring slots, two slots of slice tiles and the B
+// table; K4 three bf16 ring slots, the staged outputs and, at run-time
+// sizes, the B table.
 __host__ __device__ constexpr int smem_bytes(int v, int inst, int tile_rows, int mk, int nk) {
   return f32_in(v) ? ring_slots(v) * (4 + 2 * slices(v)) * (tile_rows + mk - 1) * stage_w(nk) +
-                         ring_slots(v) * table_bytes(v, inst, mk, nk)
+                         table_bytes(v, inst, mk, nk)
                    : 2 * ring_slots(v) * (tile_rows + mk - 1) * stage_w(nk) +
                          2 * tile_rows * kOutStride + table_bytes(v, inst, mk, nk);
 }
@@ -371,52 +380,33 @@ __device__ __forceinline__ void build_b_regs(const T* kc, uint32_t (&breg)[K][2]
   }
 }
 
-// One entry per (tap row, k-step, lane): K4s the hi pair, then the lo pair;
-// K4 and K4d the bf16 pair; K4h the four f32 taps, sliced where read.
+// The B table: entry x = tap row * steps + k-step, slice j's bf16 pairs of
+// the 32 lanes at (x * S + j) * 32 (8-byte loads: no bank conflict).
 template <int V, typename T>
 __device__ __forceinline__ void build_b_table(const T* kc, int mk, int nk, int steps,
-                                              uint32_t* table) {
+                                              uint2* table) {
+  constexpr int S = slices(V);
   const int lane = threadIdx.x & 31;
   for (int x = threadIdx.x >> 5; x < mk * steps; x += blockDim.x >> 5) {
     const int ti = x / steps;
     float v[4];
     b_taps(kc, mk, nk, ti, x - ti * steps, v);
-    if constexpr (V == kHighest) {
-      reinterpret_cast<uint4*>(table)[x * 32 + lane] =
-          make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
-                     __float_as_uint(v[3]));
-    } else {
-      uint32_t b[slices(V)][2];
-      b_regs<V>(v, b);
-      if constexpr (V == kSplit) {
-        reinterpret_cast<uint4*>(table)[x * 32 + lane] =
-            make_uint4(b[0][0], b[0][1], b[1][0], b[1][1]);
-      } else {
-        reinterpret_cast<uint2*>(table)[x * 32 + lane] = make_uint2(b[0][0], b[0][1]);
-      }
-    }
+    uint32_t b[S][2];
+    b_regs<V>(v, b);
+#pragma unroll
+    for (int j = 0; j < S; ++j) table[(x * S + j) * 32 + lane] = make_uint2(b[j][0], b[j][1]);
   }
 }
 
 template <int V>
-__device__ __forceinline__ void table_entry(const uint32_t* table, int x,
+__device__ __forceinline__ void table_entry(const uint2* table, int x,
                                             uint32_t (&b)[slices(V)][2]) {
-  const int at = x * 32 + (threadIdx.x & 31);
-  if constexpr (V == kHighest) {
-    const uint4 e = reinterpret_cast<const uint4*>(table)[at];
-    const float v[4] = {__uint_as_float(e.x), __uint_as_float(e.y), __uint_as_float(e.z),
-                        __uint_as_float(e.w)};
-    b_regs<V>(v, b);
-  } else if constexpr (V == kSplit) {
-    const uint4 e = reinterpret_cast<const uint4*>(table)[at];
-    b[0][0] = e.x;
-    b[0][1] = e.y;
-    b[1][0] = e.z;
-    b[1][1] = e.w;
-  } else {
-    const uint2 e = reinterpret_cast<const uint2*>(table)[at];
-    b[0][0] = e.x;
-    b[0][1] = e.y;
+  constexpr int S = slices(V);
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const uint2 e = table[(x * S + j) * 32 + (threadIdx.x & 31)];
+    b[j][0] = e.x;
+    b[j][1] = e.y;
   }
 }
 
@@ -426,16 +416,32 @@ __device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const __nv_b
                : "r"(smem_addr(p)));
 }
 
-// The A fragment registers of one 8-column group (16 rows from `row`, 8
-// columns from `col`) of each slice tile (slice j at tile + j * plane):
-// a[j] = rows g and g + 8, columns 2q and 2q + 1 (the mma's a0/a1 or a2/a3).
-template <int S>
-__device__ __forceinline__ void load_group(const __nv_bfloat16* tile, int plane, int sw, int row,
-                                           int col, uint32_t (&a)[S][2]) {
-  // ldmatrix.x2: lanes 0-15 give the addresses of the 16 rows
-  const int at = (row + (threadIdx.x & 15)) * sw + col;
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The A fragment registers of G 8-column groups of one slice tile, 16 rows
+// from `row`, group g at column col + 8g: a[g] = rows r and r + 8 of the
+// group, columns 2q and 2q + 1 (the mma's a0/a1 or a2/a3).  ldmatrix.x4
+// takes two groups: lanes 0-15 address the 16 rows of group g, lanes 16-31
+// those of group g + 1 (an .x2 reads lanes 0-15's addresses only).
+template <int G>
+__device__ __forceinline__ void load_groups(const __nv_bfloat16* tile, int sw, int row, int col,
+                                            uint32_t (&a)[G][2]) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* p = tile + (row + (lane & 15)) * sw + col + 8 * (lane >> 4);
 #pragma unroll
-  for (int j = 0; j < S; ++j) ldsm_x2(a[j][0], a[j][1], tile + j * plane + at);
+  for (int g = 0; g + 1 < G; g += 2) {
+    uint32_t r[4];
+    ldsm_x4(r, p + 8 * g);
+    a[g][0] = r[0];
+    a[g][1] = r[1];
+    a[g + 1][0] = r[2];
+    a[g + 1][1] = r[3];
+  }
+  if constexpr (G % 2) ldsm_x2(a[G - 1][0], a[G - 1][1], p + 8 * (G - 1));
 }
 
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
@@ -446,36 +452,33 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One k-step of one block: A from groups (a0, a1), slice by slice.  K4s:
-// hi*hi, hi*lo, lo*hi into part[0]; K4h hi*hi into part[0] and the small
-// products into part[1], smallest first: lo*hi, mid*mid, hi*lo, mid*hi,
-// hi*mid; K4 and K4d one product.
+// A's slices in the order a tap row loads them: K4h the smallest first.
+__host__ __device__ constexpr int a_slice(int v, int i) { return v == kHighest ? 2 - i : i; }
+
+// The products that read A slice sa, one block and k-step.  K4s: hi*hi,
+// hi*lo, then lo*hi, into part[0].  K4h: lo*hi, then mid*mid and mid*hi,
+// then hi*lo and hi*mid into part[1], and hi*hi into part[0].  K4 and K4d
+// one product.  sa is a constant once the slice loop is unrolled.
 template <int V>
-__device__ __forceinline__ void products(float (&part)[parts(V)][4],
-                                         const uint32_t (&a0)[slices(V)][2],
-                                         const uint32_t (&a1)[slices(V)][2],
+__device__ __forceinline__ void products(int sa, float (&part)[parts(V)][4],
+                                         const uint32_t (&a)[4],
                                          const uint32_t (&b)[slices(V)][2]) {
-  uint32_t a[slices(V)][4];
-#pragma unroll
-  for (int j = 0; j < slices(V); ++j) {
-    a[j][0] = a0[j][0];
-    a[j][1] = a0[j][1];
-    a[j][2] = a1[j][0];
-    a[j][3] = a1[j][1];
-  }
-  if constexpr (V == kSplit) {
-    mma(part[0], a[0], b[0]);
-    mma(part[0], a[0], b[1]);
-    mma(part[0], a[1], b[0]);
-  } else if constexpr (V == kHighest) {
-    mma(part[1], a[2], b[0]);
-    mma(part[1], a[1], b[1]);
-    mma(part[1], a[0], b[2]);
-    mma(part[1], a[1], b[0]);
-    mma(part[1], a[0], b[1]);
-    mma(part[0], a[0], b[0]);
+  if constexpr (V == kHighest) {
+    if (sa == 2) {
+      mma(part[1], a, b[0]);
+    } else if (sa == 1) {
+      mma(part[1], a, b[1]);
+      mma(part[1], a, b[0]);
+    } else {
+      mma(part[1], a, b[2]);
+      mma(part[1], a, b[1]);
+      mma(part[0], a, b[0]);
+    }
+  } else if constexpr (V == kSplit) {
+    mma(part[0], a, b[0]);
+    if (sa == 0) mma(part[0], a, b[1]);
   } else {
-    mma(part[0], a[0], b[0]);
+    mma(part[0], a, b[0]);
   }
 }
 
@@ -493,69 +496,59 @@ __device__ __forceinline__ void add_parts(float (&acc)[4], const float (&part)[p
   }
 }
 
-// Unrolled sizes (MK = NK = K <= 9, one k-step): a rolling window of
-// 8-column groups; B from breg (K4) or the table (f32 variants).  tile:
-// this warp's first stage row and column in the first slice tile.
-template <int V, int K, int NB>
-__device__ __forceinline__ void compute_fixed(const __nv_bfloat16* tile, int plane, int sw,
-                                              const uint32_t (&breg)[NB][2],
-                                              const uint32_t* table,
-                                              float (&acc)[warp_blocks(V)][4]) {
-  constexpr int S = slices(V);
+// One tap row of the warp's NB blocks (16 rows from this warp's first stage
+// row `tile`, its column offset included), each k-step slice by slice: B from
+// breg (K4's unrolled sizes, ti a constant) or the table, one A slice live
+// at a time, fresh accumulators added to acc at the end.  The k-steps (at
+// most three) are unrolled, so a step's loads need not wait for the last.
+template <int V, bool kRegB, int NBR>
+__device__ __forceinline__ void tap_row(const __nv_bfloat16* tile, int plane, int sw, int ti,
+                                        int steps, const uint32_t (&breg)[NBR][2],
+                                        const uint2* table, float (&acc)[warp_blocks(V)][4]) {
+  constexpr int S = slices(V), NB = warp_blocks(V);
+  float part[NB][parts(V)][4] = {};
 #pragma unroll
-  for (int ti = 0; ti < K; ++ti) {
+  for (int s = 0; s < ksteps(kMaxK); ++s) {
+    if (s >= steps) break;
     uint32_t b[S][2];
-    if constexpr (V == kBf16) {
+    if constexpr (kRegB) {
       b[0][0] = breg[ti][0];
       b[0][1] = breg[ti][1];
     } else {
-      table_entry<V>(table, ti, b);
+      table_entry<V>(table, ti * steps + s, b);
     }
-    uint32_t a0[S][2];
-    load_group<S>(tile, plane, sw, ti, 0, a0);
 #pragma unroll
-    for (int blk = 0; blk < warp_blocks(V); ++blk) {
-      uint32_t a1[S][2];
-      load_group<S>(tile, plane, sw, ti, 8 * (blk + 1), a1);
-      float part[parts(V)][4] = {};
-      products<V>(part, a0, a1, b);
-      add_parts<V>(acc[blk], part);
+    for (int i = 0; i < S; ++i) {
+      const int sa = a_slice(V, i);
+      uint32_t a[NB + 1][2];
+      load_groups<NB + 1>(tile + sa * plane, sw, ti, 16 * s, a);
 #pragma unroll
-      for (int j = 0; j < S; ++j) {
-        a0[j][0] = a1[j][0];
-        a0[j][1] = a1[j][1];
+      for (int blk = 0; blk < NB; ++blk) {
+        const uint32_t f[4] = {a[blk][0], a[blk][1], a[blk + 1][0], a[blk + 1][1]};
+        products<V>(sa, part[blk], f, b);
       }
     }
   }
+#pragma unroll
+  for (int blk = 0; blk < NB; ++blk) add_parts<V>(acc[blk], part[blk]);
 }
 
-// Run-time sizes (up to 31x31, up to three k-steps): B from the table, the
-// two groups of each block and k-step loaded for it.
-template <int V>
-__device__ __forceinline__ void compute_runtime(const __nv_bfloat16* tile, int plane, int sw,
-                                                int mk, int steps, const uint32_t* table,
-                                                float (&acc)[warp_blocks(V)][4]) {
-  constexpr int S = slices(V);
-  for (int ti = 0; ti < mk; ++ti) {
-    uint32_t b[3][S][2] = {};
+// The tile's tap rows: unrolled at the fixed sizes (one k-step), a loop at
+// run-time sizes (up to 31 rows and three k-steps).  K4h's fixed sizes take
+// two rows a turn: all nine at once spilled at the 128 registers of two
+// blocks per SM, one at a time left each row's loads unhidden.
+template <int V, int K, bool kRegB, int NBR>
+__device__ __forceinline__ void compute(const __nv_bfloat16* tile, int plane, int sw, int mk,
+                                        int steps, const uint32_t (&breg)[NBR][2],
+                                        const uint2* table, float (&acc)[warp_blocks(V)][4]) {
+  if constexpr (K > 0 && V == kHighest) {
+#pragma unroll 2
+    for (int ti = 0; ti < K; ++ti) tap_row<V, kRegB>(tile, plane, sw, ti, 1, breg, table, acc);
+  } else if constexpr (K > 0) {
 #pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      if (s < steps) table_entry<V>(table, ti * steps + s, b[s]);
-    }
-#pragma unroll
-    for (int blk = 0; blk < warp_blocks(V); ++blk) {
-      float part[parts(V)][4] = {};
-#pragma unroll
-      for (int s = 0; s < 3; ++s) {
-        if (s < steps) {
-          uint32_t a0[S][2], a1[S][2];
-          load_group<S>(tile, plane, sw, ti, 8 * blk + 16 * s, a0);
-          load_group<S>(tile, plane, sw, ti, 8 * blk + 16 * s + 8, a1);
-          products<V>(part, a0, a1, b[s]);
-        }
-      }
-      add_parts<V>(acc[blk], part);
-    }
+    for (int ti = 0; ti < K; ++ti) tap_row<V, kRegB>(tile, plane, sw, ti, 1, breg, table, acc);
+  } else {
+    for (int ti = 0; ti < mk; ++ti) tap_row<V, false>(tile, plane, sw, ti, steps, breg, table, acc);
   }
 }
 
@@ -655,14 +648,14 @@ __global__ void __launch_bounds__(kMaxThreads, 2) conv_mma_kernel(Args p) {
   const int grid = gridDim.x;
 
   if constexpr (f32_in(V)) {
-    // Two f32 ring slots, then two slots of S slice tiles, then two B
-    // tables.  One barrier a turn: after it, the copy two tiles ahead, the
-    // slicing of the next tile (and its table when its channel differs) and
-    // this tile's products run with no barrier between them, so warps that
-    // slice overlap warps that multiply.
-    const int tab_words = table_bytes(V, 0, mk, nk) / 4;
-    uint32_t* tabs = reinterpret_cast<uint32_t*>(tiles + kSlots * S * plane);
-    int tab_c[2] = {-1, -1};
+    // Two f32 ring slots, then two slots of S slice tiles, then the B
+    // table.  One barrier a turn: after it, the copy two tiles ahead, the
+    // slicing of the next tile and this tile's products run with no barrier
+    // between them, so warps that slice overlap warps that multiply.  A
+    // tile of another channel than the table's rebuilds it first, between
+    // that barrier and one more (the same branch in every thread).
+    uint2* table = reinterpret_cast<uint2*>(tiles + kSlots * S * plane);
+    int tab_c = -1;
     stage(ring, p, tile_at(p, t), sh, sw, walk);
     cp_async_commit();
     if (t + grid < p.n_tiles) stage(ring + plane, p, tile_at(p, t + grid), sh, sw, walk);
@@ -670,25 +663,23 @@ __global__ void __launch_bounds__(kMaxThreads, 2) conv_mma_kernel(Args p) {
     cp_async_wait<1>();
     __syncthreads();  // the first tile landed
     slice_stage<V>(ring, tiles, plane);
-    tab_c[0] = tile_at(p, t).c;
-    build_b_table<V>(static_cast<const T*>(p.k) + static_cast<size_t>(tab_c[0]) * mk * nk,
-                        mk, nk, steps, tabs);
     for (int slot = 0; t < p.n_tiles; slot ^= 1, t += grid) {
       const Tile tile = tile_at(p, t);
       cp_async_wait<0>();
-      __syncthreads();  // this tile sliced, the next landed; the other slots are free
+      __syncthreads();  // this tile sliced, the next landed; the other slots and the table are free
+      if (tile.c != tab_c) {
+        build_b_table<V>(static_cast<const T*>(p.k) + static_cast<size_t>(tile.c) * mk * nk, mk,
+                         nk, steps, table);
+        tab_c = tile.c;
+        __syncthreads();  // the table ready
+      }
       if (t + 2 * grid < p.n_tiles) {
         stage(ring + slot * plane, p, tile_at(p, t + 2 * grid), sh, sw, walk);
         cp_async_commit();
       }
       if (t + grid < p.n_tiles) {
-        const int nx = slot ^ 1, c = tile_at(p, t + grid).c;
+        const int nx = slot ^ 1;
         slice_stage<V>(ring + nx * plane, tiles + S * nx * plane, plane);
-        if (c != tab_c[nx]) {
-          build_b_table<V>(static_cast<const T*>(p.k) + static_cast<size_t>(c) * mk * nk, mk,
-                              nk, steps, tabs + nx * tab_words);
-          tab_c[nx] = c;
-        }
       }
 #pragma unroll
       for (int b = 0; b < NB; ++b) {
@@ -696,19 +687,14 @@ __global__ void __launch_bounds__(kMaxThreads, 2) conv_mma_kernel(Args p) {
         for (int e = 0; e < 4; ++e) acc[b][e] = 0.0f;
       }
       const __nv_bfloat16* st = tiles + S * slot * plane + wr * sw + wc;
-      const uint32_t* table = tabs + slot * tab_words;
-      if constexpr (kFixed) {
-        compute_fixed<V, K>(st, plane, sw, breg, table, acc);
-      } else {
-        compute_runtime<V>(st, plane, sw, mk, steps, table, acc);
-      }
+      compute<V, K, false>(st, plane, sw, mk, steps, breg, table, acc);
       store_pairs(p, Tile{tile.c, tile.i0, tile.j0 + wc}, wr, acc);
     }
   } else {
     // Three bf16 ring slots, the staged outputs, then the B table of the
     // run-time instance: the slot of the previous tile takes the tile two
     // ahead while this one's products run.
-    uint32_t* table = reinterpret_cast<uint32_t*>(tiles + p.tile_rows * kOutStride);
+    uint2* table = reinterpret_cast<uint2*>(tiles + p.tile_rows * kOutStride);
     __nv_bfloat16* ob = tiles + warp * 16 * kOutStride;  // this warp's staged outputs
     int cur_c = -1;
     for (int s = 0; s < kSlots - 1; ++s) {
@@ -742,11 +728,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) conv_mma_kernel(Args p) {
         for (int e = 0; e < 4; ++e) acc[b][e] = 0.0f;
       }
       const __nv_bfloat16* st = ring + slot * plane + wr * sw + wc;
-      if constexpr (kFixed) {
-        compute_fixed<kBf16, K>(st, plane, sw, breg, table, acc);
-      } else {
-        compute_runtime<kBf16>(st, plane, sw, mk, steps, table, acc);
-      }
+      compute<kBf16, K, kRegB>(st, plane, sw, mk, steps, breg, table, acc);
       store_staged(p, Tile{tile.c, tile.i0, tile.j0 + wc}, wr, acc, ob);
       __syncthreads();  // the ring slot and the table are free again
     }

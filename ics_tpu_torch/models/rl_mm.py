@@ -14,7 +14,7 @@ Inner loop, per outer iteration, as ``RLConfig.inner_loop`` routes it
 (``inner_loop_route``): the one-launch kernel K2 (ops/cuda_solver.py), or
 the op-level loop on the convolution dispatch (``RLConfig.conv_method``:
 'auto' runs K1, K4s under ``conv_precision='high'`` and K4 for bf16
-operands; 'pallas_mxu' K4h, K4s or K4d by ``conv_precision``), the K3 PSF
+operands; 'pallas_mxu' K4h, or K4d under 'fast'), the K3 PSF
 gradient (float32 blind solves) and the K5 TV stencil (``use_tv``).  K2
 does its own convolutions, as JAX's kernel does, whatever
 ``conv_method`` says.  On the CPU, both run on the plain twins.
@@ -56,7 +56,7 @@ class RLConfig:
 
     ``conv_method`` routes the op loop's convolutions (``ops/conv.py``):
     'auto' (K1, or K4s under 'high', K4 on bf16 operands), 'pallas_mxu'
-    and 'mxu' (K4h at 'exact', K4s at 'high', K4d at 'fast'; K4 on bf16),
+    and 'mxu' (K4h at 'exact' and 'high', K4d at 'fast'; K4 on bf16),
     'pallas' and 'stencil' (K1), 'direct' (cuDNN, TF32 off) and 'fft'
     (cuFFT).
     """
@@ -67,9 +67,10 @@ class RLConfig:
     tv_method: str = "auto"
     tv_norm: str = "channel"  # 'channel' | 'collab' | 'collab_l2'
     conv_method: str = "auto"
-    # 'exact': float32 convs (HIGHEST); 'high': f32 convs through the bf16x3
-    # split kernel K4s (about 1e-6 relative, not bit parity), under 'auto'
-    # those of 81-961 taps; 'fast': single-pass bf16 products (DEFAULT)
+    # 'exact': float32 convs (HIGHEST); 'high': under 'auto', f32 convs of
+    # 81-961 taps through the bf16x3 split kernel K4s (about 1e-6 relative,
+    # not bit parity), exact under every explicit method, as JAX's
+    # _dispatch has it; 'fast': single-pass bf16 products (DEFAULT)
     # where the method is 'pallas_mxu' or 'mxu' (K4d), exact f32 under the
     # other methods (JAX's stencil and VPU Pallas paths are exact f32 too)
     conv_precision: str = "exact"

@@ -26,10 +26,11 @@ The explicit methods, for taps up to 31 a side:
 
 * ``'pallas_mxu'`` and ``'mxu'`` (JAX's MXU Pallas kernel and its XLA
   banded product, the same function at the same precision): K4 on bfloat16
-  operands; on float32 ones K4h at ``'exact'``, K4s at ``'bf16x3'`` and K4d
-  at ``'fast'``.  JAX's explicit path turns ``'bf16x3'`` into HIGHEST
-  before it reaches the kernel (ics_tpu/ops/conv.py:369-373); the port runs
-  the split kernel that the name asks for, within 1e-5 of HIGHEST.
+  operands; on float32 ones K4h at ``'exact'`` and ``'bf16x3'`` and K4d at
+  ``'fast'``.  Every explicit method takes ``'bf16x3'`` as ``'exact'``,
+  as JAX's ``_dispatch`` turns it into HIGHEST before any of them
+  (ics_tpu/ops/conv.py:369-373); the split kernel K4s runs under
+  ``'auto'`` and in ``cuda_conv_mma.conv_rgb_mxu(precision='bf16x3')``.
 * ``'pallas'`` and ``'stencil'`` (JAX's VPU Pallas kernel and its XLA
   shift-and-add, the same f32 function): K1 on float32, K4 on bfloat16
   under the deviation above.
@@ -171,6 +172,8 @@ def conv_planar(a: torch.Tensor, k: torch.Tensor, mode: str,
     mk, nk = k.shape[1], k.shape[2]
     small = max(mk, nk) <= cuda_conv.MAX_TAPS_SIDE
     bf16 = a.dtype == torch.bfloat16
+    if method != "auto" and precision == "bf16x3":
+        precision = "exact"  # the split applies only under 'auto' (ics_tpu/ops/conv.py:369-373)
     if method == "auto":
         if not small:
             return _conv_fft(a, k, mode)
@@ -189,8 +192,7 @@ def conv_planar(a: torch.Tensor, k: torch.Tensor, mode: str,
         return cuda_conv_mma.conv_bf16(a, k, mode)
     if method in ("pallas", "stencil"):
         return cuda_conv.conv_planar(a, k, mode)
-    mxu = {"exact": cuda_conv_mma.conv_highest, "bf16x3": cuda_conv_mma.conv_split,
-           "fast": cuda_conv_mma.conv_default}
+    mxu = {"exact": cuda_conv_mma.conv_highest, "fast": cuda_conv_mma.conv_default}
     return mxu[precision](a, k, mode)
 
 

@@ -57,8 +57,8 @@ UNROLLED = (3, 5, 7, 9)  # MK = NK sizes with their own template instance
 VARIANTS = {"K4": 0, "K4s": 1, "K4h": 2, "K4d": 3}
 _ENTRIES = {0: "ics_conv_mma_bf16", 1: "ics_conv_mma_split", 2: "ics_conv_mma_highest",
             3: "ics_conv_mma_default"}
-SLICES = {0: 1, 1: 2, 2: 3, 3: 1}  # bf16 slices of each staged value
-ENTRY_BYTES = {0: 8, 1: 16, 2: 16, 3: 8}  # bytes of one B table entry
+SLICES = {0: 1, 1: 2, 2: 3, 3: 1}  # bf16 slices of each staged value and B entry
+ENTRY_BYTES = {v: 8 * n for v, n in SLICES.items()}  # one B table entry: a bf16 pair a slice
 SMEM_OPT_IN = 232448  # bytes of shared memory one block may use (227 KB)
 SMEM_PER_SM = 233472  # bytes of shared memory per SM (228 KB), 1 KB reserved per block
 THREADS_PER_SM = 512  # __launch_bounds__(256, 2): at most 128 registers a thread
@@ -91,16 +91,16 @@ def _ksteps(nk: int) -> int:
 def smem_bytes(variant: int, inst: int, tile_rows: int, mk: int, nk: int) -> int:
     """Shared memory of one block, as csrc/conv_mma.cu::smem_bytes, in planes
     of (tile_rows + mk - 1) x (56 + 16 * steps) values: the f32 variants
-    (K4s, K4h, K4d) two f32 ring slots and two slots of their bf16 slice
-    tiles, each slot with its B table (an entry per tap row, k-step and
-    lane: 16 bytes for K4s and K4h, 8 for K4d); K4 three bf16 ring slots,
-    its staged outputs (tile_rows x 72 bf16) and, at run-time sizes, its B
-    table (8-byte entries)."""
+    (K4s, K4h, K4d) two f32 ring slots, two slots of their bf16 slice tiles
+    and one B table (an entry per tap row, k-step and lane: a bf16 pair per
+    slice, 16 bytes for K4s, 24 for K4h, 8 for K4d); K4 three bf16 ring
+    slots, its staged outputs (tile_rows x 72 bf16) and, at run-time sizes,
+    its B table (8-byte entries)."""
     plane = (tile_rows + mk - 1) * (TILE_W - 8 + 16 * _ksteps(nk))
     f32 = variant != VARIANTS["K4"]
     table = 0 if inst and not f32 else mk * _ksteps(nk) * 32 * ENTRY_BYTES[variant]
     if f32:
-        return 2 * (4 + 2 * SLICES[variant]) * plane + 2 * table
+        return 2 * (4 + 2 * SLICES[variant]) * plane + table
     return 6 * plane + 2 * tile_rows * 72 + table
 
 
@@ -269,17 +269,24 @@ _PRECISION_NAMES = {"highest": "exact", "default": "fast", "bf16x3": "bf16x3"}
 def conv_rgb_mxu(a: torch.Tensor, k: torch.Tensor, mode: str = "same",
                  precision: str = "highest") -> torch.Tensor:
     """Counterpart of ``conv_rgb_pallas_mxu``: the (H, W, C) image ``a``
-    convolved per channel with ``k`` (MK, NK, C), or (MK, NK) broadcast,
-    through ``convolve_rgb(method='pallas_mxu')``: K4h at ``'highest'``
-    (its default, as HIGHEST is JAX's), K4d at ``'default'`` and K4s at
-    ``'bf16x3'`` on float32 operands, K4 on bfloat16 ones.  Another dtype
-    is cast to float32.  Taps over 31 a side take the direct convolution;
-    over 129 wide raise ``ValueError``, as JAX's does."""
+    convolved per channel with ``k`` (MK, NK, C), or (MK, NK) broadcast:
+    K4h at ``'highest'`` (its default, as HIGHEST is JAX's), K4d at
+    ``'default'`` and K4s, the split kernel that ``conv_rgb_pallas_mxu``
+    runs, at ``'bf16x3'`` on float32 operands; K4 on bfloat16 ones.  Another
+    dtype is cast to float32.  Apart from K4s, it is
+    ``convolve_rgb(method='pallas_mxu')``: taps over 31 a side take the
+    direct convolution; over 129 wide raise ``ValueError``, as JAX's
+    does."""
     from ics_tpu_torch.ops.conv import convolve_rgb
 
     if precision not in _PRECISION_NAMES:
         raise ValueError(f"unknown precision {precision!r} (use {', '.join(_PRECISION_NAMES)})")
     if a.dtype not in (torch.float32, torch.bfloat16):
         a = a.float()
-    return convolve_rgb(a, k.to(a.dtype), mode, method="pallas_mxu",
-                        precision=_PRECISION_NAMES[precision])
+    k = k.to(a.dtype)
+    if precision == "bf16x3" and a.dtype == torch.float32 and max(k.shape[:2]) <= MAX_TAPS_SIDE:
+        if k.ndim == 2:
+            k = k.unsqueeze(-1).expand(*k.shape, a.shape[-1])
+        out = conv_split(a.permute(2, 0, 1).contiguous(), k.permute(2, 0, 1).contiguous(), mode)
+        return out.permute(1, 2, 0)
+    return convolve_rgb(a, k, mode, method="pallas_mxu", precision=_PRECISION_NAMES[precision])

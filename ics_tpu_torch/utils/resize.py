@@ -1,16 +1,19 @@
-"""Cubic resize, the same function as ``jax.image.resize(..., "cubic")``
-(counterpart of ``resize_jax`` in ics_tpu/utils/resize.py:51-70).
+"""``jax.image.resize``'s resize (counterpart of ``resize_jax`` in
+ics_tpu/utils/resize.py:51-70), every method it takes; the pipeline uses
+the cubic.
 
 JAX resizes by one dense weight matrix per axis whose size changes, built by
-``jax._src.image.scale.compute_weight_mat``: the Keys cubic (a = -0.5) at
-half-pixel centers; on downscale the kernel is widened by 1/scale
-(antialiasing); each output's weights are renormalized to sum 1 (which drops
-the taps that fall outside the input); outputs whose sample point lies
-outside the input get weight 0.  The matrices are built here the same way,
-with the same float32 sample positions, on the image's device (a 24 MP level's
-matrix holds 25 M entries), cached per shape, and applied as float32 matmuls
-with TF32 off.  ``F.interpolate(mode="bicubic")`` uses another coefficient,
-edge rule and no antialiasing: it is not this function.
+``jax._src.image.scale.compute_weight_mat``: the kernel (the Keys cubic,
+a = -0.5; the triangle; Lanczos of radius 3 or 5) at half-pixel centers; on
+downscale the kernel is widened by 1/scale (antialiasing); each output's
+weights are renormalized to sum 1 (which drops the taps that fall outside
+the input); outputs whose sample point lies outside the input get weight 0.
+The matrices are built here the same way, with the same float32 sample
+positions, on the image's device (a 24 MP level's matrix holds 25 M
+entries), cached per shape and method, and applied as float32 matmuls with
+TF32 off.  ``'nearest'`` gathers, as ``jax._src.image.scale._resize_nearest``
+does, and keeps the dtype.  ``F.interpolate(mode="bicubic")`` uses another
+coefficient, edge rule and no antialiasing: it is not this function.
 
 ``resize`` is the host-side SciPy resize of ``resize_backend="scipy"``,
 copied from ics_tpu/utils/resize.py:26-48 (the port never imports
@@ -27,7 +30,7 @@ from scipy import ndimage
 
 from ics_tpu_torch._device import exact_f32
 
-__all__ = ["resize", "resize_jax", "weight_matrix"]
+__all__ = ["resize", "resize_jax", "weight_matrix", "METHODS"]
 
 
 def resize(image: np.ndarray, shape, order: int = 3, mode: str = "edge") -> np.ndarray:
@@ -63,9 +66,38 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - torch.abs(x), min=0.0)
+
+
+def _lanczos(radius: float, x: torch.Tensor) -> torch.Tensor:
+    y = radius * torch.sin(np.pi * x) * torch.sin(np.pi * x / radius)
+    out = torch.where(x > 1e-3, y / torch.where(x != 0, np.pi**2 * x**2, torch.ones_like(x)),
+                      torch.ones_like(x))
+    return torch.where(x > radius, torch.zeros_like(x), out)
+
+
+# jax.image.ResizeMethod.from_string's names
+_KERNELS = {"linear": _triangle, "cubic": _keys_cubic,
+            "lanczos3": functools.partial(_lanczos, 3.0),
+            "lanczos5": functools.partial(_lanczos, 5.0)}
+_ALIASES = {"bilinear": "linear", "trilinear": "linear", "triangle": "linear",
+            "bicubic": "cubic", "tricubic": "cubic"}
+METHODS = ("nearest", *_KERNELS, *_ALIASES)
+
+
+def _method(method: str) -> str:
+    if method not in METHODS:
+        raise ValueError(f'Unknown resize method "{method}"')
+    return _ALIASES.get(method, method)
+
+
 @functools.lru_cache(maxsize=32)
-def weight_matrix(in_size: int, out_size: int, device: str = "cpu") -> torch.Tensor:
-    """(in_size, out_size) float32 weights of one resized axis."""
+def weight_matrix(in_size: int, out_size: int, device: str = "cpu",
+                  method: str = "cubic") -> torch.Tensor:
+    """(in_size, out_size) float32 weights of one resized axis, for any
+    method but 'nearest'."""
+    kernel = _KERNELS[_method(method)]
     f32 = torch.float32
     # JAX: scale = out/in and inv_scale = 1/scale in double (Python floats),
     # rounded to float32 where they meet float32 arrays
@@ -75,10 +107,10 @@ def weight_matrix(in_size: int, out_size: int, device: str = "cpu") -> torch.Ten
     x = torch.abs(
         sample_f[None, :] - torch.arange(in_size, dtype=f32, device=device)[:, None]
     ) / kernel_scale
-    # the cubic and its renormalization in float64, rounded once: JAX's float32
-    # rounding of them depends on the backend's FMA contraction, and float64
-    # lands within a few 1e-7 of each backend's result
-    weights = _keys_cubic(x.double())
+    # the kernel and its renormalization in float64, rounded once: JAX's
+    # float32 rounding of them depends on the backend's FMA contraction, and
+    # float64 lands within a few 1e-7 of each backend's result
+    weights = kernel(x.double())
     total = torch.sum(weights, dim=0, keepdim=True)
     weights = torch.where(
         torch.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
@@ -89,22 +121,39 @@ def weight_matrix(in_size: int, out_size: int, device: str = "cpu") -> torch.Ten
     return torch.where(inside[None, :], weights, torch.zeros_like(weights)).to(f32)
 
 
-def resize_jax(image: torch.Tensor, shape) -> torch.Tensor:
-    """Resize (H, W, ...) to ``shape[:2]`` spatially, on the tensor's device.
+def _nearest(image: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Source index floor((i + 0.5) * in / out) in float32 along each resized
+    axis, as JAX computes it; the dtype is kept."""
+    out = image
+    for axis, n in ((0, out_h), (1, out_w)):
+        m = out.shape[axis]
+        if m != n:
+            at = (torch.arange(n, dtype=torch.float32, device=image.device) + 0.5) * m / n
+            out = out.index_select(axis, torch.floor(at).long())
+    return out
+
+
+def resize_jax(image: torch.Tensor, shape, method: str = "cubic") -> torch.Tensor:
+    """Resize (H, W, ...) to ``shape[:2]`` spatially, on the tensor's device,
+    with any method that ``jax.image.resize`` takes (``METHODS``; another
+    name raises ``ValueError``).
 
     Axes whose size does not change are left as they are (JAX skips them
-    too), so a same-size call returns ``image`` itself.
+    too), so a same-size call returns ``image`` itself.  Every method but
+    'nearest' computes in float32.
     """
-    exact_f32()
     out_h, out_w = int(shape[0]), int(shape[1])
+    if _method(method) == "nearest":
+        return _nearest(image, out_h, out_w)
+    exact_f32()
     in_h, in_w = image.shape[0], image.shape[1]
     dev = str(image.device)
     out = image.to(torch.float32)
     if in_h != out_h:
-        wh = weight_matrix(in_h, out_h, dev)
+        wh = weight_matrix(in_h, out_h, dev, method)
         rest = out.shape[1:]
         out = (wh.T @ out.reshape(in_h, -1)).reshape(out_h, *rest)
     if in_w != out_w:
-        ww = weight_matrix(in_w, out_w, dev)
+        ww = weight_matrix(in_w, out_w, dev, method)
         out = (out.movedim(1, -1) @ ww).movedim(-1, 1).contiguous()
     return out

@@ -9,10 +9,13 @@ torch op at a time.  A CUDA kernel cannot run on the CPU, so it raises
 there.  ``chip_smoke.py`` runs it as its phase 2 and takes the kernels
 line from its rows.
 
-``bench_conv_backends`` times the 'same'-mode 9x9 per-channel conv as a
-chain of calls between two CUDA events with one sync at the end (the
-counterpart of the JAX file's ``lax.scan`` chain); ``bench_scaling`` the
-row-sharded solve on 1, 2, 4 and 8 ranks.
+``bench_conv_backends`` times the 'same'-mode 9x9 per-channel conv of
+each ``convolve_rgb`` method and dtype, with JAX's arguments and keys, and
+of each kernel named in ``kernels``, as a chain of calls between two CUDA
+events with one sync at the end (the counterpart of the JAX file's
+``lax.scan`` chain).  JAX records a method that fails as ``None``; here a
+kernel that faults raises, so no fault on the card passes as data.
+``bench_scaling`` times the row-sharded solve on 1, 2, 4 and 8 ranks.
 
 The battery helpers (``make_success_battery``, ``synth_blur_case``,
 ``rel_error``, ``_sharp_frame``, ``_sharp_crop``, ``_blob_kernel``,
@@ -663,27 +666,36 @@ def certify_kernels(report=print, device="cuda", rows: dict | None = None) -> bo
 
 
 # ------------------------------------------------------------- benchmarks
-def bench_conv_backends(shapes=((2048, 3072), (4005, 6005)), mk=9,
-                        methods=("K1", "K4s", "K4", "K4h", "K4d", "cudnn"), n_iter=20, reps=3,
-                        report=print, device="cuda"):
+# bench_conv_backends' kernel names: K4s is 'auto' at precision 'high', K4h
+# and K4d 'pallas_mxu' at 'exact' and 'fast', cudnn the yardstick
+CONV_BENCH_KERNELS = ("K1", "K4s", "K4", "K4h", "K4d", "cudnn")
+
+
+def bench_conv_backends(shapes=((2048, 3072), (4005, 6005)), dtypes=("float32", "bfloat16"),
+                        mk=9, methods=("pallas", "pallas_mxu", "mxu"), report=print, *,
+                        device="cuda", n_iter=20, reps=3, kernels=()):
     """ms per call of the 'same'-mode mk x mk per-channel conv on a
-    ``make_scene`` frame: K1 on f32, K4s (precision 'high'), K4 (bf16), K4h
-    and K4d (f32 through 'pallas_mxu' at 'exact' and 'fast') and cuDNN's
-    grouped ``conv2d`` in f32 with TF32 off (the yardstick).  Each
-    is timed as a chain of ``n_iter`` calls, every call taking the last
-    one's output, between two CUDA events with one sync at the end; the
-    best of ``reps`` chains.  Returns {(h, w, method): ms}."""
+    ``make_scene`` frame of each shape: ``convolve_rgb(method=...)`` on the
+    (H, W, C) frame in each of ``dtypes``, then each of ``kernels``
+    (``CONV_BENCH_KERNELS``) on the planar frame in its operand dtype: K1,
+    K4s, K4h and K4d on float32, K4 on bfloat16, and cuDNN's grouped
+    ``conv2d`` in float32 with TF32 off.  Each is timed as a chain of
+    ``n_iter`` calls, every call taking the last one's output, between two
+    CUDA events with one sync at the end; the best of ``reps`` chains.
+    Returns {(h, w, dtype, method or kernel): ms}.  A call that fails raises
+    (JAX's records ``None``)."""
     import torch
     import torch.nn.functional as F
 
     from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma
+    from ics_tpu_torch.ops.conv import convolve_rgb
 
     dev = _cuda(device)
     rng = np.random.default_rng(2)
     kern = np.abs(rng.random((3, mk, mk))).astype(np.float32)
     kern /= kern.sum(axis=(1, 2), keepdims=True)  # magnitude-preserving chain
     k32 = torch.from_numpy(kern).to(dev)
-    calls = {
+    planar = {
         "K1": (torch.float32, lambda a, k: cuda_conv.conv_planar(a, k, "same")),
         "K4s": (torch.float32, lambda a, k: cuda_conv_mma.conv_split(a, k, "same")),
         "K4": (torch.bfloat16, lambda a, k: cuda_conv_mma.conv_bf16(a, k, "same")),
@@ -692,34 +704,41 @@ def bench_conv_backends(shapes=((2048, 3072), (4005, 6005)), mk=9,
         "cudnn": (torch.float32, lambda a, k: F.conv2d(
             a[None], torch.flip(k, (1, 2))[:, None], padding=mk // 2, groups=3)[0]),
     }
+
+    def best_ms(fn, x0, k):
+        def chain():
+            x = x0
+            for _ in range(n_iter):
+                x = fn(x, k)
+            return x
+
+        chain()  # warm (and build)
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            chain()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / n_iter)
+        return best
+
     results = {}
     for h, w in shapes:
         base = torch.from_numpy(np.ascontiguousarray(
             make_scene(h, w, mk, seed=h)[0].transpose(2, 0, 1))).to(dev)
-        for method in methods:
-            dtype, fn = calls[method]
-            x0, k = base.to(dtype), k32.to(dtype)
-
-            def chain():
-                x = x0
-                for _ in range(n_iter):
-                    x = fn(x, k)
-                return x
-
-            chain()  # warm (and build)
-            torch.cuda.synchronize()
-            best = float("inf")
-            for _ in range(reps):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                chain()
-                end.record()
-                end.synchronize()
-                best = min(best, start.elapsed_time(end) / n_iter)
-            results[(h, w, method)] = best
-            report(f"[conv-bench] {h}x{w} {str(dtype).split('.')[-1]} {method}: {best:.3f} ms")
-        del base
+        runs = [(dtype, method, base.permute(1, 2, 0), k32.permute(1, 2, 0),
+                 lambda a, k, method=method: convolve_rgb(a, k, mode="same", method=method))
+                for dtype in dtypes for method in methods]
+        runs += [(str(planar[name][0]).split(".")[-1], name, base, k32, planar[name][1])
+                 for name in kernels]
+        for dtype, name, x, k, fn in runs:
+            ms = best_ms(fn, x.to(getattr(torch, dtype)), k.to(getattr(torch, dtype)))
+            results[(h, w, dtype, name)] = ms
+            report(f"[conv-bench] {h}x{w} {dtype} {name}: {ms:.3f} ms")
+        del base, runs
     return results
 
 

@@ -6,10 +6,11 @@ tests/test_conv.py runs them).
 
 Tolerances, relative to the largest value of the JAX output:
 
-* 1e-5: the float32 methods at exact precision (HIGHEST): the same f32
-  function, summed in other orders;
-* 1e-4: ``bf16x3`` (the split kernel's twin against JAX's split kernel and
-  against HIGHEST, which JAX's explicit methods run for it);
+* 1e-5: the float32 methods at exact precision (HIGHEST), and at
+  ``bf16x3`` under the explicit methods, which run HIGHEST for it in both
+  packages: the same f32 function, summed in other orders;
+* 1e-4: ``conv_rgb_mxu`` at ``bf16x3`` (the split kernel's twin against
+  JAX's split kernel);
 * 2e-2: bfloat16 operands (the JAX selftest's bound: JAX's stencil and VPU
   kernel round their partial sums to bf16, the port's K4 once);
 * 1e-2: K4d's twin against JAX at DEFAULT: JAX on the CPU computes DEFAULT
@@ -74,12 +75,12 @@ def test_f32_methods_match_jax(method, mode, no_launches):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("precision,tol", [("exact", 1e-5), ("bf16x3", 1e-4)])
+@pytest.mark.parametrize("precision,tol", [("exact", 1e-5), ("bf16x3", 1e-5)])
 @pytest.mark.parametrize("method", ["pallas_mxu", "mxu"])
 def test_mxu_methods_match_jax_precisions(method, precision, tol, mode, no_launches):
-    """9x9 taps: the K4h (exact) and K4s (bf16x3) twins against JAX's MXU
-    methods at HIGHEST (which JAX's explicit methods also run for
-    'bf16x3')."""
+    """9x9 taps: the K4h twin at 'exact' and at 'bf16x3' (which JAX's
+    explicit methods, and the port's, run as HIGHEST) against JAX's MXU
+    methods."""
     a, k = _inputs(2, mk=9, nk=9)
     want = jconv.convolve_rgb(jnp.asarray(a), jnp.asarray(k), mode, method=method,
                               precision=JAX_PRECISION[precision])
@@ -224,10 +225,23 @@ def test_richardson_lucy_mm_conv_methods_match_jax(method, blind, no_launches):
 
 @pytest.mark.parametrize("blind", [False, True])
 def test_richardson_lucy_mm_pallas_mxu_high_matches_jax(blind, no_launches):
-    """'high' + 'pallas_mxu': the port's K4s twin against JAX's HIGHEST."""
+    """'high' + 'pallas_mxu': the port's K4h twin against JAX's HIGHEST."""
     want, got = _mm(blind, conv_method="pallas_mxu", conv_precision="high")
-    assert _rel(got.u, want.u) <= 1e-4
-    assert _rel(got.psf, want.psf) <= 1e-4
+    assert _rel(got.u, want.u) <= 1e-5
+    assert _rel(got.psf, want.psf) <= 1e-5
+
+
+@pytest.mark.parametrize("blind", [False, True])
+@pytest.mark.parametrize("method", ["pallas_mxu", "mxu"])
+def test_richardson_lucy_mm_explicit_high_equals_exact(method, blind, no_launches):
+    """Under an explicit method 'high' is 'exact' (JAX computes the two the
+    same way): the port's two solves are equal bit for bit."""
+    kw = dict(tau=1e9, iterations=3, lambd=1000.0, blind=blind, device="cpu")
+    high, exact = (trl.richardson_lucy_MM(
+        IMAGE, U, PSF, *WIN, config=trl.RLConfig(conv_method=method, conv_precision=p), **kw)
+        for p in ("high", "exact"))
+    assert torch.equal(high.u, exact.u) and torch.equal(high.psf, exact.psf)
+    assert torch.equal(high.stats, exact.stats)
 
 
 @pytest.mark.parametrize("blind", [False, True])

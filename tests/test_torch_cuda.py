@@ -556,6 +556,46 @@ def test_k4h_k4d_ring_tail_on_gpu(name, mk, mode):
     _f32_variant_case(dev, name, (c, h, w), mk, mk, mode)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mk,nk,mode", [((3, 1000, 2200), 9, 9, "valid"),
+                                              ((3, 1000, 2200), 7, 7, "full"),
+                                              ((3, 300, 401), 31, 29, "same")])
+def test_k4h_same_bits_on_every_call_on_gpu(shape, mk, nk, mode):
+    """K4h sums each output in one thread in a fixed order: three calls, on
+    planes whose blocks walk several tiles across channels, give the same
+    bits."""
+    dev = _need_gpu()
+    gen = torch.Generator().manual_seed(mk * 100 + nk)
+    a = torch.rand(shape, generator=gen).to(dev)
+    k = torch.rand((shape[0], mk, nk), generator=gen).to(dev)
+    first = cuda_conv_mma.conv_highest(a, k, mode)
+    for _ in range(2):
+        assert torch.equal(cuda_conv_mma.conv_highest(a, k, mode), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mk,nk,mode", [((3, 520, 520), 9, 9, "valid"),
+                                              ((3, 77, 141), 9, 9, "same"),
+                                              ((3, 45, 101), 31, 29, "same")])
+def test_k4s_in_k4h_place_fails_the_bound_on_gpu(shape, mk, nk, mode):
+    """The certification's bound tells K4h from K4s on the card: at its
+    inputs, K4h stays within HIGHEST_TOL of the float64 twin and K4s, the
+    bf16x3 kernel, planted in its place, does not."""
+    from ics_tpu_torch.utils.selftest import _Certify
+
+    dev = _need_gpu()
+    cert = _Certify(torch, dev, None, None, {})
+    a = cert.rand(shape)
+    k = cert.t(cert.rng.uniform(0.05, 1.0, (shape[0], mk, nk)))
+    ref = cuda_conv_mma.conv_highest_plain(a, k, mode)
+
+    def rel(got):
+        return float((got - ref).abs().max() / ref.abs().max())
+
+    assert rel(cuda_conv_mma.conv_highest(a, k, mode)) <= HIGHEST_TOL
+    assert rel(cuda_conv_mma.conv_split(a, k, mode)) > HIGHEST_TOL
+
+
 def _launches():
     return {"K1": cuda_conv.launches, "K4s": cuda_conv_mma.split_launches,
             "K4": cuda_conv_mma.bf16_launches, "K4h": cuda_conv_mma.highest_launches,
@@ -568,7 +608,8 @@ def _launches():
     ("auto", "bf16x3", False, 7, "K1"), ("auto", "fast", False, 9, "K1"),
     ("auto", "exact", True, 9, "K4"), ("auto", "exact", False, 33, None),
     ("pallas_mxu", "exact", False, 9, "K4h"), ("pallas_mxu", "fast", False, 9, "K4d"),
-    ("pallas_mxu", "bf16x3", False, 9, "K4s"), ("pallas_mxu", "exact", True, 9, "K4"),
+    ("pallas_mxu", "bf16x3", False, 9, "K4h"), ("mxu", "bf16x3", False, 9, "K4h"),
+    ("pallas_mxu", "exact", True, 9, "K4"),
     ("pallas_mxu", "exact", False, 5, "K4h"), ("pallas_mxu", "exact", False, 33, None),
     ("mxu", "exact", False, 9, "K4h"), ("mxu", "fast", False, 3, "K4d"),
     ("mxu", "exact", True, 9, "K4"),
@@ -606,12 +647,15 @@ def test_conv_method_routes_on_gpu(method, precision, bf16, side, want):
     ("auto", "exact", "K1", ("K4h", "K4d")),
     ("pallas_mxu", "exact", "K4h", ("K1", "K4d")),
     ("pallas_mxu", "fast", "K4d", ("K1", "K4h")),
+    ("pallas_mxu", "high", "K4h", ("K1", "K4s", "K4d")),
+    ("mxu", "high", "K4h", ("K1", "K4s", "K4d")),
 ])
 def test_solver_conv_method_routes_on_gpu(method, precision, want, not_want):
     """A non-blind op-loop solve (``inner_loop='xla'``: K2 would take this
     window and run its own convolutions) with each method: 'auto' keeps its
-    K1 route, 'pallas_mxu' runs K4h or K4d and no K1; u within 1e-5 (exact)
-    or 2e-2 (fast) of the 'auto' run."""
+    K1 route, 'pallas_mxu' runs K4h or K4d and no K1, and an explicit method
+    at 'high' runs K4h, not K4s; u within 1e-5 (exact, high) or 2e-2 (fast)
+    of the 'auto' run."""
     import numpy as np
 
     from ics_tpu_torch.models.rl_mm import RLConfig, richardson_lucy_MM
@@ -659,13 +703,18 @@ def test_certify_kernels_passes_on_gpu():
 
 @pytest.mark.cuda
 def test_bench_conv_backends_on_gpu():
-    from ics_tpu_torch.utils.selftest import bench_conv_backends
+    from ics_tpu_torch.utils.selftest import CONV_BENCH_KERNELS, bench_conv_backends
 
     _need_gpu()
     before = _launches()
-    got = bench_conv_backends(shapes=((257, 383),), n_iter=3, reps=1, report=lambda line: None)
+    got = bench_conv_backends(shapes=((257, 383),), n_iter=3, reps=1, report=lambda line: None,
+                              kernels=CONV_BENCH_KERNELS)
     after = _launches()
-    assert sorted(m for _, _, m in got) == ["K1", "K4", "K4d", "K4h", "K4s", "cudnn"]
+    # JAX's (h, w, dtype, method) keys, then each kernel under its operand dtype
+    methods = [(257, 383, d, m) for d in ("float32", "bfloat16")
+               for m in ("pallas", "pallas_mxu", "mxu")]
+    names = [(257, 383, "bfloat16" if n == "K4" else "float32", n) for n in CONV_BENCH_KERNELS]
+    assert sorted(got) == sorted(methods + names)
     assert all(ms > 0 for ms in got.values())
     assert all(after[n] > before[n] for n in after)
 

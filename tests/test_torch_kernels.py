@@ -188,6 +188,72 @@ def test_k4_unrolled_sizes_pick_their_instance(split, mk, nk, inst):
     assert g.smem == (with_table if split or inst == 0 else with_table - table)
 
 
+@pytest.mark.parametrize("mk", range(1, cuda_conv_mma.MAX_TAPS_SIDE + 1))
+def test_k4h_occupancy_within_the_card(mk):
+    """K4h's launches fit the card's SM: blocks per SM times the block's
+    shared memory (and 1 KB each) within 228 KB, times its threads within
+    the 512 that __launch_bounds__(256, 2) allows; the 24 MP 9x9 launch
+    keeps 16 warps on each SM (two blocks of 8)."""
+    code = cuda_conv_mma.VARIANTS["K4h"]
+    for nk in range(1, cuda_conv_mma.MAX_TAPS_SIDE + 1):
+        for c, ho, wo in _K4_SHAPES:
+            g = cuda_conv_mma.geometry(code, c, ho, wo, mk, nk, 132)
+            threads = 4 * g.tile_rows  # two warps across, one per 16 rows
+            per_sm = min(cuda_conv_mma.SMEM_PER_SM // (g.smem + 1024),
+                         cuda_conv_mma.THREADS_PER_SM // threads)
+            assert per_sm >= 1
+            assert per_sm * (g.smem + 1024) <= cuda_conv_mma.SMEM_PER_SM
+            assert per_sm * threads <= cuda_conv_mma.THREADS_PER_SM
+            assert g.grid <= per_sm * 132
+    g = cuda_conv_mma.geometry(code, 3, 4004, 6004, 9, 9, 132)
+    assert (g.tile_rows, g.grid) == (64, 264)  # 2 blocks x 256 threads per SM
+
+
+def _slices3(x: np.ndarray):
+    """K4h's split of float32 x (csrc/conv_mma.cu slice<kHighest>): hi and
+    mid by clearing the low 16 bits, lo the exact rest (8 bits or fewer),
+    each as float64."""
+    def trunc(v):
+        return (v.astype(np.float32).view(np.int32) & -65536).view(np.float32)
+
+    hi = trunc(x)
+    rest = x.astype(np.float32) - hi
+    mid = trunc(rest)
+    lo = (rest - mid).astype(np.float32)
+    assert np.array_equal(lo, torch.from_numpy(lo).bfloat16().float().numpy())
+    assert np.array_equal(hi.astype(np.float64) + mid + lo, x.astype(np.float64))
+    return hi.astype(np.float64), mid.astype(np.float64), lo.astype(np.float64)
+
+
+def test_highest_tol_tells_six_products_from_three():
+    """The certification's HIGHEST_TOL against the float64 twin: K4h's six
+    slice products (each exact in float64; the three it drops, mid*lo,
+    lo*mid and lo*lo, come to about 1e-7) sit well inside it, leaving room
+    for the kernel's f32 sums, and K4s's bf16x3 twin lies outside it, so
+    K4s planted for K4h fails the check."""
+    from ics_tpu_torch.utils.selftest import HIGHEST_TOL
+
+    a = (RNG.random((3, 61, 83)) * 0.75 + 0.15).astype(np.float32)
+    k = RNG.uniform(0.05, 1.0, (3, 9, 9)).astype(np.float32)
+    ref = cuda_conv_mma.conv_highest_plain(torch.from_numpy(a), torch.from_numpy(k), "same")
+    ah, am, al = _slices3(a)
+    kh, km, kl = _slices3(k)
+    f64 = torch.float64
+
+    def conv(x, y):
+        return cuda_conv_mma._conv_f64(torch.from_numpy(x), torch.from_numpy(y), "same").to(f64)
+
+    # the products in K4h's order, each a float64 convolution of exact slices
+    six = (conv(al, kh) + conv(am, km) + conv(am, kh) + conv(ah, kl) + conv(ah, km)
+           + conv(ah, kh))
+    exact = conv(a.astype(np.float64), k.astype(np.float64))
+    rel6 = float((six - exact).abs().max() / exact.abs().max())
+    split = cuda_conv_mma.conv_split_plain(torch.from_numpy(a), torch.from_numpy(k), "same")
+    rel3 = float((split - ref).abs().max() / ref.abs().max())
+    assert rel6 <= HIGHEST_TOL / 4
+    assert rel3 > HIGHEST_TOL
+
+
 def test_split_hi_lo_matches_jax():
     from ics_tpu.ops.pallas_conv_mxu import _split_hi_lo
 
@@ -387,7 +453,7 @@ def test_k6_folded_constants_reproduce_the_twin(radius, std_i, scale):
 @pytest.mark.parametrize("mk", range(1, cuda_conv_mma.MAX_TAPS_SIDE + 1))
 @pytest.mark.parametrize("variant", ["K4h", "K4d"])
 def test_k4h_k4d_geometry_fits_the_card(variant, mk):
-    """K4h (three slice tiles, 16-byte B entries) and K4d (one slice tile,
+    """K4h (three slice tiles, 24-byte B entries) and K4d (one slice tile,
     8-byte entries) fit one block in shared memory at every tap size up to
     31x31, and their persistent walk covers every output once."""
     code = cuda_conv_mma.VARIANTS[variant]
@@ -402,17 +468,18 @@ def test_k4h_k4d_geometry_fits_the_card(variant, mk):
     assert np.array_equal(_k4_walk(g, 3, 1000, 2200), np.ones((3, 1000, 2200), np.int32))
 
 
-@pytest.mark.parametrize("variant,slices,entry", [("K4s", 2, 16), ("K4h", 3, 16), ("K4d", 1, 8)])
+@pytest.mark.parametrize("variant,slices,entry", [("K4s", 2, 16), ("K4h", 3, 24), ("K4d", 1, 8)])
 def test_f32_variants_shared_memory(variant, slices, entry):
     """The f32 variants' block: two f32 ring slots and two slots of their
-    bf16 slice tiles (4 + 2 * slices bytes per staged value, twice), and two
-    B tables of 32 lanes' entries per tap row and k-step; K4s's matches the
-    split flag's formula of before (16 bytes per value)."""
+    bf16 slice tiles (4 + 2 * slices bytes per staged value, twice), and one
+    B table of 32 lanes' entries per tap row and k-step, a bf16 pair per
+    slice (rebuilt when a block's tile changes channel); K4s's matches the
+    split flag's formula."""
     code = cuda_conv_mma.VARIANTS[variant]
     for mk, nk, tile_rows in [(9, 9, 64), (31, 31, 16), (5, 17, 32)]:
         plane = (tile_rows + mk - 1) * (56 + 16 * ((8 + nk - 1 + 15) // 16))
         table = mk * ((8 + nk - 1 + 15) // 16) * 32 * entry
-        want = 2 * (4 + 2 * slices) * plane + 2 * table
+        want = 2 * (4 + 2 * slices) * plane + table
         assert cuda_conv_mma.smem_bytes(code, 0, tile_rows, mk, nk) == want
     assert cuda_conv_mma.smem_bytes(True, 0, 64, 9, 9) == \
         cuda_conv_mma.smem_bytes(cuda_conv_mma.VARIANTS["K4s"], 0, 64, 9, 9)

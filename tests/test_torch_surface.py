@@ -205,3 +205,17 @@ def test_enable_persistent_cache_takes_the_build_directory(tmp_path):
     assert "took" in proc.stdout
     assert any((tmp_path / "builds").glob("runtime-*/libics_runtime.so"))
     assert not (tmp_path / "other").exists()
+
+
+@pytest.mark.parametrize("module,name", [("utils.selftest", "bench_conv_backends"),
+                                         ("utils.resize", "resize_jax")])
+def test_signature_starts_with_jaxs(module, name):
+    """The port's function takes JAX's parameters first, in JAX's order and
+    with JAX's defaults; the port's own extras come after, as keywords."""
+    jax_fn = getattr(importlib.import_module(f"ics_tpu.{module}"), name)
+    port_fn = getattr(importlib.import_module(f"ics_tpu_torch.{module}"), name)
+    want = list(inspect.signature(jax_fn).parameters.values())
+    got = list(inspect.signature(port_fn).parameters.values())
+    assert [(p.name, p.default) for p in got[: len(want)]] == \
+        [(p.name, p.default) for p in want]
+    assert all(p.kind == p.KEYWORD_ONLY for p in got[len(want):])
