@@ -94,7 +94,13 @@ Phases:
      within 1e-5 of the 'auto' op loop); 'direct', 'fft', 'stencil',
      'pallas' and 'mxu' at 1.9 MP, non-blind, 20 outers, each within 1e-5
      of 'auto' with the launches that show its route; then K4h and K4d
-     against their twins at every shape these runs gave them.
+     against their twins at every shape these runs gave them;
+ 10. the bench (``ics_tpu_torch.bench``): its ``_run_case`` on phase 4's
+     1.9 MP scene with phase 4's outer count, its per-outer probes at the
+     24 MP final level's geometry (2 outers, exact and 'high', K1 and K4s
+     launched, finite), the exact probe's device time per outer by kernel
+     (torch.profiler), and its JSON line assembled from these and phase
+     5's 24 MP runs (``bench.KW24``), with BENCH_r05.json's keys.
 
 SSIM comes from ``ics_tpu_torch.utils.metrics``; every pass/fail comparison
 computes it on the CPU, so the yardstick is independent of the kernels.
@@ -117,7 +123,9 @@ import time
 
 import numpy as np
 
-# the scenes, the CUDA-event timer and phase 2's kernel certification
+# the bench's cases, the scenes, the CUDA-event timer and phase 2's kernel
+# certification
+from ics_tpu_torch import bench
 from ics_tpu_torch.utils import selftest
 from ics_tpu_torch.utils.selftest import make_scene
 
@@ -206,10 +214,6 @@ def _zero_counters() -> None:
     cuda_conv_mma.highest_launches = cuda_conv_mma.default_launches = 0
 
 
-# the 24 MP case's kwargs (bench.py:336-348)
-KW24 = dict(blur_width=9, mask=[2000, 3000], mask_size=511, display=False, tolerance=0.1,
-            quality="normal", preview=False, blur="static", iterations=200, verbose=False)
-
 # the kernels each solver family's path must launch
 SOLVER_KERNELS = {"pam": ("K1", "K3", "K5"), "pd": ("K3",)}
 
@@ -245,12 +249,12 @@ def phase_pipelines(torch, dev):
         _require(s >= bound, f"{label}: port on CUDA vs port on CPU SSIM >= {bound}")
 
     # 4. the 1.9 MP reference case (bench.py:402-413)
-    sharp19, pic19 = make_scene(1367, 1394, 7, seed=19)
-    kw19 = dict(blur_width=7, mask=[584, 795], display=False, tolerance=0.1,
-                quality="normal", preview=False, blur="static", iterations=200,
-                verbose=False, precision="exact")
+    sharp19, pic19 = make_scene(1367, 1394, *bench.SCENES[(1367, 1394)])
+    kw19 = bench.KW19
     out19, wall, comp, levels = _deblur(torch, pic19, "cuda", **kw19)
     _report("1.9MP 1367x1394", wall, comp, levels)
+    # (wall, outers, compute-only) of the bench's cases, for phase 10
+    cases = {"1.9mp": (wall, sum(n for _, _, n, _ in levels), comp)}
     # the same case with inner_loop='xla': the op loop, with K3, on the
     # blind windows that take K2 under 'auto'
     _zero_counters()
@@ -278,8 +282,8 @@ def phase_pipelines(torch, dev):
     # 5. the 24 MP case (bench.py:336-348): the main path in exact f32, then
     # the paths of K4s, K4 and K5 and the other solver families; the
     # counters are zeroed just before each run and read just after it
-    sharp24, pic24 = make_scene(4000, 6000, 9, seed=24)
-    kw24 = KW24
+    sharp24, pic24 = make_scene(4000, 6000, *bench.SCENES[(4000, 6000)])
+    kw24 = bench.KW24
     launches, solver_launches = {}, {}
     for label, extra, names in [
         ("exact", dict(precision="exact"), ("K1", "K2", "K3")),
@@ -291,10 +295,12 @@ def phase_pipelines(torch, dev):
     ]:
         torch.cuda.reset_peak_memory_stats(dev)
         _zero_counters()
-        out24, wall, comp, levels = _deblur(torch, pic24, "cuda", **kw24, **extra)
+        out24, wall, comp, levels = _deblur(torch, pic24, "cuda", **{**kw24, **extra})
         counts = _counters()
         if label == "exact":
             out24_exact, levels24_exact = out24, levels
+        if label in ("exact", "high", "mixed"):
+            cases[label] = (wall, sum(n for _, _, n, _ in levels), comp)
         _report(f"24MP 4000x6000 {label}", wall, comp, levels)
         print(f"24MP {label} peak device memory: "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
@@ -323,7 +329,7 @@ def phase_pipelines(torch, dev):
                   dict(solver="pam"), dict(solver="pd")):
         profile_run(torch, pic24, kw24, extra)
     prime_fft_times(torch, dev)
-    return launches, pic19, outs19, pic24, (out24_exact, levels24_exact)
+    return launches, pic19, outs19, pic24, (out24_exact, levels24_exact), cases
 
 
 def prime_fft_times(torch, dev) -> None:
@@ -378,7 +384,7 @@ def profile_run(torch, pic24, kw24, extra: dict) -> None:
         _zero_counters()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            _, _, _, levels = _deblur(torch, pic24, "cuda", **kw24, **extra)
+            _, _, _, levels = _deblur(torch, pic24, "cuda", **{**kw24, **extra})
             wall = time.perf_counter() - t0
         counts = _counters()
     finally:
@@ -587,7 +593,7 @@ def _mesh_rank(rank: int, port: int, tmp: str) -> None:
         _zero_counters()
         t0 = time.perf_counter()
         out = deblur_module(pic, "smoke", None, mesh=mesh, stats_out=stats, device="cuda",
-                            **KW24)
+                            **bench.KW24)
         wall = time.perf_counter() - t0
         counts = _counters()
         blind = {f"blind_psf{i}": s["result"].psf.cpu().numpy()
@@ -1207,6 +1213,78 @@ def _conv_method_runs(torch, dev, pic19, pic24) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 10
+def phase_bench(torch, dev, pic19, cases: dict) -> None:
+    """``ics_tpu_torch.bench``'s pieces: ``_run_case`` on phase 4's 1.9 MP
+    scene with its kwargs (K1 and K2 launched, phase 4's outer count), the
+    per-outer probes at the 24 MP final level's geometry, 2 outers each,
+    exact (K1) and 'high' (K4s), one more exact probe under torch.profiler
+    (device time per outer by kernel), then the bench's JSON line assembled
+    from these and phase 5's single 24 MP runs (``bench.KW24``), held to
+    BENCH_r05.json's keys.  The counters are zeroed just before each and
+    read just after."""
+    t_phase = time.perf_counter()
+    _zero_counters()
+    case19 = bench._run_case(pic19, bench.KW19, "smoke-bench-1.9mp", reps=1, device=dev)
+    counts = _counters()
+    print(f"phase 10: bench 1.9MP: wall {case19[0]:.3f} s, compute-only {case19[2]:.3f} s, "
+          f"{case19[1]} outers, launches {json.dumps(counts)}")
+    _require(case19[1] == cases["1.9mp"][1],
+             f"bench._run_case 1.9 MP: phase 4's {cases['1.9mp'][1]} outers")
+    _require(counts["K1"] > 0 and counts["K2"] > 0, "bench 1.9 MP case launches K1 and K2")
+    probes = {}
+    for precision, kid in (("exact", "K1"), ("high", "K4s")):
+        _zero_counters()
+        probes[precision] = bench._per_outer_probe(iters=2, reps=1, conv_precision=precision,
+                                                   device=dev)
+        counts = _counters()
+        per_outer = probes[precision][0]
+        print(f"phase 10: per-outer probe {precision}: {per_outer * 1e3:.3f} ms per outer "
+              f"(2 outers, best of 1), launches {json.dumps(counts)}")
+        _require(np.isfinite(per_outer) and per_outer > 0 and counts[kid] > 0,
+                 f"per-outer probe {precision}: finite stats, {kid} launched")
+    # where the exact probe's time goes: one more call (a warm and a timed
+    # solve of 2 outers each) under torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        bench._per_outer_probe(iters=2, reps=1, device=dev)
+    outers, sums = 4, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kid = next((k for frag, k in _KERNEL_NAMES if frag in e.name), e.name[:160])
+            n, t = sums.get(kid, (0, 0.0))
+            sums[kid] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    # the set-up's uploads of the frame and u, outside the probe's clock
+    copies = [sums.pop(k) for k in [k for k in sums if k.startswith("Memcpy HtoD")]]
+    busy = sum(t for _, t in sums.values())
+    print(f"phase 10: exact probe profiled: set-up uploads {sum(t for _, t in copies):.3f} ms "
+          f"in {sum(n for n, _ in copies)} copies; the solves' device busy "
+          f"{busy / outers:.3f} ms per outer, {sum(n for n, _ in sums.values()) / outers:.1f} "
+          "kernels per outer; by kernel, ms per outer, launches per outer, share:")
+    for name, (n, t) in sorted(sums.items(), key=lambda kv: -kv[1][1])[:12]:
+        print(f"  {t / outers:.3f} ms, {n / outers:.1f}, {t / busy:.3f}, {name}")
+    _require(sums.get("K1", (0, 0.0))[0] > 0, "profiled exact probe: K1 in the trace")
+
+    line = bench._result(4000 * 6000 / 1e6, cases["exact"], cases["mixed"], cases["high"],
+                         probes["exact"], probes["high"], pic19.shape[0] * pic19.shape[1] / 1e6,
+                         case19, bench._device_name(dev))
+    numbers = [v for d in (line, *(v for v in line.values() if isinstance(v, dict)))
+               for v in d.values() if isinstance(v, (int, float))]
+
+    def keys(d, prefix=""):
+        return {prefix + k for k in d} | {x for k, v in d.items() if isinstance(v, dict)
+                                          for x in keys(v, prefix + k + ".")}
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "BENCH_r05.json")) as f:
+        want = keys(json.load(f)["parsed"])
+    _require(all(np.isfinite(numbers)) and keys(line) == want,
+             "bench JSON line: every number finite, BENCH_r05.json's keys")
+    print(f"phase 10: bench JSON line (phase 5's single 24 MP runs under bench.KW24, phase "
+          f"10's 1.9 MP case and probes): {json.dumps(line)}")
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+
+
 def compare_deblur_batch(other: str) -> int:
     """``--deblur-batch-against DIR``: the wall of the CLI ``deblur-batch``
     on phase 7's burst (four 24 MP 16-bit TIFFs, one 9x9 PSF, mask 511),
@@ -1296,7 +1374,7 @@ def main() -> int:
 
     torch.manual_seed(0)
     rows = phase_kernels(dev)
-    launches, pic19, outs19, pic24, exact24 = phase_pipelines(torch, dev)
+    launches, pic19, outs19, pic24, exact24, cases = phase_pipelines(torch, dev)
     launches.update(phase_cli(pic19, outs19, pic24))
     import tempfile
 
@@ -1304,6 +1382,7 @@ def main() -> int:
         phase_parallel(torch, dev, pic19, outs19["mm"], pic24, exact24, burst_dir)
         phase_host_and_batteries(torch, dev, pic24, burst_dir)
     launches.update(phase_conv_methods(torch, dev, pic19, pic24))
+    phase_bench(torch, dev, pic19, cases)
 
     sources = {
         "K1": ("ics_tpu_torch/csrc/conv2d.cu", "ics_tpu/ops/pallas_conv.py:39"),

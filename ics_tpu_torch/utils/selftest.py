@@ -51,6 +51,22 @@ def _fixture(reference, name: str) -> str | None:
     return path if os.path.exists(path) else None
 
 
+def _real_image(h: int, w: int, reference=None) -> np.ndarray:
+    """An (h, w, 3) float32 frame in [0, 1]: the reference's
+    ``crop-blured.jpg`` from ``reference``, tiled, else the JAX file's
+    stand-in, ``default_rng(0)``'s 512^2 noise, tiled (the same bytes)."""
+    path = _fixture(reference, "crop-blured.jpg")
+    if path is not None:
+        from PIL import Image
+
+        with Image.open(path) as im:
+            base = np.asarray(im, np.float32) / 255.0
+    else:
+        base = np.random.default_rng(0).random((512, 512, 3)).astype(np.float32)
+    reps = (-(-h // base.shape[0]), -(-w // base.shape[1]), 1)
+    return np.tile(base, reps)[:h, :w]
+
+
 # ------------------------------------------------------------------ scenes
 def _gauss_taps(blur: int) -> np.ndarray:
     """The scenes' 1-D Gaussian blur of width ``blur`` (sigma blur/4), summing
