@@ -4,6 +4,9 @@
     python3 chip_smoke.py     # one GPU, a few minutes with the kernel build
     python3 chip_smoke.py --deblur-batch-against DIR
         # the CLI deblur-batch's wall from the checkout DIR against this one
+    python3 chip_smoke.py --outer-loop-profiles
+        # phase 5's profiled 24 MP exact, 'high' and 'mixed' runs in the
+        # graph outer loop and in the Python one, in turns
 
 Phases:
   1. probe: the card and its driver (nvidia-smi), torch.version.cuda, nvcc,
@@ -11,8 +14,8 @@ Phases:
   2. ``ics_tpu_torch.utils.selftest.certify_kernels``: each
      hand-written kernel (K1 conv, K2 inner loop, K3 PSF gradient, K4s
      split, K4 bf16, K4h f32-at-HIGHEST and K4d f32-at-DEFAULT tensor-core
-     convs, K5 TV stencil, K6 bilateral filter) against its plain PyTorch
-     twin on the card, at its path's
+     convs, K5 TV stencil, K6 bilateral filter, K7 the outer loop's stop)
+     against its plain PyTorch twin on the card, at its path's
      shapes, with CUDA-event median times of both and of the one PyTorch
      call that computes the same function where there is one, taken in
      turns (the kernel's also as device time alone, ``device_ms``); every
@@ -25,7 +28,9 @@ Phases:
      the card could take: bytes over 3.35 TB/s or operations over the peak
      rate of their type, whichever is larger) is computed from the shapes
      (K6's also counts the exponentials the function needs at the SFU's
-     rate);
+     rate).  Every one-image solve from phase 3 on runs its outers as
+     CUDA-graph replays, the stop decided on the card by K7
+     (models/rl_mm.py); phase 11 holds that loop against the Python one;
   3. the crop-scale pipeline on CUDA against the same pipeline on the CPU
      (SSIM of the uint16 outputs), in exact, mixed, high, fast, use_tv
      under each tv_norm, and with the TV-PAM and TV-PD solvers;
@@ -46,8 +51,9 @@ Phases:
      each kernel's summed device time and launches, K1, K4s and K4 split
      into full frames and blind windows (one profiled kernel per wrapper
      launch), one psf_grad kernel per K3 call, the device time per outer
-     and cuFFT's share of the device time; then the time of one rfft2 +
-     irfft2 pair on PD's prime-length frame against a smooth one;
+     and cuFFT's share of the device time (for the mm runs also the graph
+     solves, their host reads and capture time); then the time of one
+     rfft2 + irfft2 pair on PD's prime-length frame against a smooth one;
   6. the command line (``ics_tpu_torch.cli.main``) on the card, TIFF in and
      TIFF out: ``bilateral``, ``bilateral-lab``, ``usm`` and ``tv-denoise``
      with their defaults on the 24 MP frame (K6 > 0 after each bilateral
@@ -100,7 +106,20 @@ Phases:
      24 MP final level's geometry (2 outers, exact and 'high', K1 and K4s
      launched, finite), the exact probe's device time per outer by kernel
      (torch.profiler), and its JSON line assembled from these and phase
-     5's 24 MP runs (``bench.KW24``), with BENCH_r05.json's keys.
+     5's 24 MP runs (``bench.KW24``), with BENCH_r05.json's keys;
+ 11. the outer loop: each solve case in the graph loop (untimed), in the
+     Python outer loop (``rl_mm._eager_outer_loop()``) and in the graph
+     loop again, bitwise equal (u, u_full, psf,
+     image, stats, the record; ``deblur_module``'s uint16 output and every
+     level's result), the same outers and launches (K7 once per outer in
+     the graph loop, never in the Python one), one host read per replay
+     (outers - 1 per solve); the
+     1.9 MP blind mask window (K2), a 24 MP blind 520^2 window (the op loop,
+     K3), the 24 MP non-blind frame at 20 outers, the 1.9 MP frame in
+     'high', 'mixed' and use_tv collab, non-blind early_stop,
+     record_metrics, and ``deblur_module`` at 1.9 MP (also profiled, both
+     loops) and 24 MP exact (peak memory of both); walls, host reads and
+     capture milliseconds per solve.  At most 60 s.
 
 SSIM comes from ``ics_tpu_torch.utils.metrics``; every pass/fail comparison
 computes it on the CPU, so the yardstick is independent of the kernels.
@@ -193,22 +212,22 @@ def _report(label, wall, compute, levels):
 def _counters():
     """{kernel: launches so far} over every wrapper's counter."""
     from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
-                                   cuda_solver, cuda_tv)
+                                   cuda_outer, cuda_solver, cuda_tv)
 
     return {
         "K1": cuda_conv.launches, "K2": cuda_solver.launches,
         "K3": cuda_correlate.launches, "K4s": cuda_conv_mma.split_launches,
         "K4": cuda_conv_mma.bf16_launches, "K4h": cuda_conv_mma.highest_launches,
         "K4d": cuda_conv_mma.default_launches, "K5": cuda_tv.launches,
-        "K6": cuda_bilateral.launches,
+        "K6": cuda_bilateral.launches, "K7": cuda_outer.launches,
     }
 
 
 def _zero_counters() -> None:
     from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
-                                   cuda_solver, cuda_tv)
+                                   cuda_outer, cuda_solver, cuda_tv)
 
-    for mod in (cuda_conv, cuda_solver, cuda_correlate, cuda_tv, cuda_bilateral):
+    for mod in (cuda_conv, cuda_solver, cuda_correlate, cuda_tv, cuda_bilateral, cuda_outer):
         mod.launches = 0
     cuda_conv_mma.split_launches = cuda_conv_mma.bf16_launches = 0
     cuda_conv_mma.highest_launches = cuda_conv_mma.default_launches = 0
@@ -286,7 +305,7 @@ def phase_pipelines(torch, dev):
     kw24 = bench.KW24
     launches, solver_launches = {}, {}
     for label, extra, names in [
-        ("exact", dict(precision="exact"), ("K1", "K2", "K3")),
+        ("exact", dict(precision="exact"), ("K1", "K2", "K3", "K7")),
         ("high", dict(precision="high"), ("K4s",)),
         ("mixed", dict(precision="mixed"), ("K4",)),
         ("use_tv collab", dict(precision="exact", use_tv=True, tv_norm="collab"), ("K5",)),
@@ -348,7 +367,7 @@ def prime_fft_times(torch, dev) -> None:
 _KERNEL_NAMES = [("conv2d_kernel", "K1"), ("inner_loop_kernel", "K2"), ("psf_grad", "K3"),
                  ("conv_mma_kernel<1,", "K4s"), ("conv_mma_kernel<0,", "K4"),
                  ("conv_mma_kernel<2,", "K4h"), ("conv_mma_kernel<3,", "K4d"),
-                 ("tv_kernel", "K5"), ("bilateral_kernel", "K6")]
+                 ("tv_kernel", "K5"), ("bilateral_kernel", "K6"), ("outer_stop_kernel", "K7")]
 
 
 # the wrappers whose launches are split by shape class in the profile
@@ -356,14 +375,56 @@ _BY_SHAPE = {"K1": ("cuda_conv", "conv_planar"), "K4s": ("cuda_conv_mma", "conv_
              "K4": ("cuda_conv_mma", "conv_bf16")}
 
 
-def profile_run(torch, pic24, kw24, extra: dict) -> None:
+_captured = []  # (add, key) of the wrapper calls in the graph being captured
+
+
+def _note(add, key) -> None:
+    """``add(key, 1)`` for a wrapper call that launches; a call made while a
+    CUDA graph is captured launches once per replay (``_replays_noted``)."""
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        _captured.append((add, key))
+    else:
+        add(key, 1)
+
+
+@contextlib.contextmanager
+def _replays_noted():
+    """Within the block, each replay of a solve's graph (models/rl_mm.py::
+    _graph_loop) adds the wrapper calls noted during its capture, times the
+    outers the replay ran, as the launch counters do."""
+    from ics_tpu_torch.models import rl_mm
+
+    loop, count = rl_mm._graph_loop, rl_mm._count_replays
+
+    def graph_loop(*args, **kw):
+        _captured.clear()
+        return loop(*args, **kw)
+
+    def count_replays(per_body, outers):
+        for add, key in _captured:
+            add(key, outers)
+        count(per_body, outers)
+
+    rl_mm._graph_loop, rl_mm._count_replays = graph_loop, count_replays
+    try:
+        yield
+    finally:
+        rl_mm._graph_loop, rl_mm._count_replays = loop, count
+
+
+def profile_run(torch, pic24, kw24, extra: dict, eager: bool = False) -> None:
     """One more 24 MP run with ``extra`` (a precision or a solver) under
     torch.profiler: each kernel's summed device time and launches, K1, K4s
     and K4 split by shape class (a full frame, or a blind window of at most
-    600x600: the op loop's 369^2 and 520^2 levels), and cuFFT's share."""
+    600x600: the op loop's 369^2 and 520^2 levels), and cuFFT's share.
+    ``eager``: in the Python outer loop (``rl_mm._eager_outer_loop()``)."""
     label = " ".join(f"{v}" if k == "precision" else f"{k}={v}" for k, v in extra.items())
+    label += " eager loop" if eager else ""
     from torch.profiler import ProfilerActivity, profile
 
+    from ics_tpu_torch.models import rl_mm
     from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma
 
     mods = {"cuda_conv": cuda_conv, "cuda_conv_mma": cuda_conv_mma}
@@ -374,7 +435,8 @@ def profile_run(torch, pic24, kw24, extra: dict) -> None:
         def call(a, k, mode):
             if a.device.type == "cuda":
                 size = a.shape[1] * a.shape[2]
-                classes[kid].append("window" if size <= 600 * 600 else "frame")
+                _note(lambda cls, n: classes[kid].extend([cls] * n),
+                      "window" if size <= 600 * 600 else "frame")
             return originals[kid](a, k, mode)
         return call
 
@@ -382,7 +444,9 @@ def profile_run(torch, pic24, kw24, extra: dict) -> None:
         setattr(mods[m], f, classified(kid))
     try:
         _zero_counters()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rl_mm.loop_log.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                _replays_noted(), rl_mm._eager_outer_loop() if eager else contextlib.nullcontext():
             t0 = time.perf_counter()
             _, _, _, levels = _deblur(torch, pic24, "cuda", **{**kw24, **extra})
             wall = time.perf_counter() - t0
@@ -418,6 +482,16 @@ def profile_run(torch, pic24, kw24, extra: dict) -> None:
     print(f"profile 24MP {label}: wall {wall:.3f} s (profiled), device busy {busy:.3f} s, "
           f"busy share {busy / wall:.3f}, {outers} outers, "
           f"{busy / outers * 1e3:.3f} ms device time per outer (all levels)")
+    solves = list(rl_mm.loop_log)
+    k7_kernels = sums.get("K7", (0, 0.0))[0]
+    _require(eager or "solver" in extra
+             or (sum(e["outers"] for e in solves) == outers == counts["K7"] == k7_kernels
+                 and all(e["route"] == "graph" for e in solves)),
+             f"profiler {label}: every level a graph solve, K7 once per outer in the trace")
+    if solves:
+        print(f"profile 24MP {label}: {len(solves)} graph solves, host reads "
+              f"{sum(e['reads'] for e in solves)}, capture ms "
+              f"{sum(e['capture_ms'] or 0.0 for e in solves):.1f}")
     report = {k: {"launches": n, "device_s": t / 1e6} for k, (n, t) in sorted(sums.items())}
     print(f"profile 24MP {label} kernels: " + json.dumps(report))
     fft = [(n, t) for name, (n, t) in other.items() if "fft" in name.lower()]
@@ -1000,11 +1074,11 @@ def phase_host_and_batteries(torch, dev, pic24, burst_dir: str) -> None:
 
 
 # ---------------------------------------------------------------- phase 9
-def _rl(torch, dev, pic, mk, blind=False, window=None, **cfg):
+def _rl(torch, dev, pic, mk, blind=False, window=None, tau=1e9, iterations=20, **cfg):
     """``richardson_lucy_MM`` on the uint8 frame ``pic`` (or its ``window``:
-    top, left, rows, columns) with the scene's mk x mk Gaussian PSF, 20
-    outers (tau 1e9: the stop never fires); (result, launches, seconds),
-    the counters zeroed just before the run."""
+    top, left, rows, columns) with the scene's mk x mk Gaussian PSF, by
+    default 20 outers (tau 1e9: the non-blind stop never fires); (result,
+    launches, seconds), the counters zeroed just before the run."""
     from ics_tpu_torch.models.rl_mm import RLConfig, richardson_lucy_MM
 
     if window is not None:
@@ -1020,8 +1094,8 @@ def _rl(torch, dev, pic, mk, blind=False, window=None, **cfg):
     torch.cuda.synchronize(dev)
     _zero_counters()
     t0 = time.perf_counter()
-    res = richardson_lucy_MM(image, u0, _gauss_psf(mk), *box, 1e9, iterations=20, blind=blind,
-                             config=RLConfig(**cfg), device=dev)
+    res = richardson_lucy_MM(image, u0, _gauss_psf(mk), *box, tau, iterations=iterations,
+                             blind=blind, config=RLConfig(**cfg), device=dev)
     torch.cuda.synchronize(dev)
     return res, _counters(), time.perf_counter() - t0
 
@@ -1117,12 +1191,13 @@ def _run_device_seconds(torch, dev, pic24, kid: str, first, **cfg) -> None:
     shapes = collections.Counter()
 
     def counted(a, k, mode):
-        shapes[(tuple(a.shape), tuple(k.shape), mode)] += 1
+        _note(lambda key, n: shapes.update({key: n}), (tuple(a.shape), tuple(k.shape), mode))
         return inner(a, k, mode)
 
     setattr(cuda_conv_mma, name, counted)
     try:
-        again, counts, _ = _rl(torch, dev, pic24, 9, **cfg)
+        with _replays_noted():
+            again, counts, _ = _rl(torch, dev, pic24, 9, **cfg)
     finally:
         setattr(cuda_conv_mma, name, inner)
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1285,6 +1360,132 @@ def phase_bench(torch, dev, pic19, cases: dict) -> None:
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------------- phase 11
+def _same_bits(torch, a, b) -> bool:
+    """Two RLResults bitwise: u, u_full, psf, image, stats and the record."""
+    same = all(torch.equal(getattr(a, n), getattr(b, n))
+               for n in ("u", "u_full", "psf", "image", "stats"))
+    if a.trajectory is None or b.trajectory is None:
+        return same and a.trajectory is b.trajectory
+    return same and a.trajectory.keys() == b.trajectory.keys() and all(
+        np.array_equal(a.trajectory[k], b.trajectory[k]) for k in a.trajectory)
+
+
+def _check_loops(label, outers, same, graph, eager) -> None:
+    """One case of phase 11: ``graph`` and ``eager`` are (launches, wall,
+    the graph loop's log of solves) of the two loops."""
+    (gn, gwall, solves), (en, ewall, _) = graph, eager
+    capture = [round(e["capture_ms"], 2) for e in solves if e["capture_ms"] is not None]
+    print(f"phase 11: {label}: {outers} outers in {len(solves)} solves; wall graph "
+          f"{gwall:.3f} s, eager {ewall:.3f} s; host reads graph "
+          f"{sum(e['reads'] for e in solves)} ({[e['reads'] for e in solves]} per solve), "
+          f"eager {outers}; capture ms per solve {capture}; launches graph {json.dumps(gn)}, "
+          f"eager {json.dumps(en)}")
+    _require(same, f"phase 11 {label}: graph and eager loops bitwise equal")
+    _require(len(solves) > 0 and all(e["route"] == "graph" and e["reads"] == e["outers"] - 1
+                                     for e in solves)
+             and sum(e["outers"] for e in solves) == outers,
+             f"phase 11 {label}: every solve a graph loop, one host read per replay")
+    _require(gn["K7"] == outers and en["K7"] == 0
+             and {k: v for k, v in gn.items() if k != "K7"} == {k: v for k, v in en.items()
+                                                                if k != "K7"},
+             f"phase 11 {label}: the same launches in both loops, K7 once per outer")
+
+
+def _ab_solve(torch, dev, label, pic, mk, **kw) -> None:
+    """``_rl`` in the graph loop (untimed: the kernels' and cuFFT's first
+    calls at these shapes), inside ``rl_mm._eager_outer_loop()``, then in
+    the graph loop again; the three bitwise equal."""
+    from ics_tpu_torch.models import rl_mm
+
+    runs = []
+    for eager in (False, True, False):
+        rl_mm.loop_log.clear()
+        with rl_mm._eager_outer_loop() if eager else contextlib.nullcontext():
+            res, counts, wall = _rl(torch, dev, pic, mk, **kw)
+        runs.append((res, (counts, wall, list(rl_mm.loop_log))))
+    (first, _), (want, eager), (got, graph) = runs
+    _require(_finite(torch, got), f"phase 11 {label}: u finite")
+    _check_loops(f"{label} (converged={got.converged})", got.iterations,
+                 _same_bits(torch, got, want) and _same_bits(torch, got, first), graph, eager)
+
+
+def _ab_deblur(torch, dev, label, pic, kw, profiled: bool) -> None:
+    """``deblur_module`` in the graph loop, then in the Python loop: the
+    uint16 outputs and every level's result bitwise, walls, peak memory,
+    host reads and capture time per level; with ``profiled``, each loop once
+    more under torch.profiler for its busy share (phase 5 profiles 24 MP)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ics_tpu_torch import deblur_module
+    from ics_tpu_torch.models import rl_mm
+
+    runs = []
+    # phases 4 and 5 ran these cases in the graph loop before: both loops
+    # find the kernels, plans and allocator warm
+    for eager in (False, True):
+        stats = []
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)  # the first run's results stay
+        _zero_counters()
+        rl_mm.loop_log.clear()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                rl_mm._eager_outer_loop() if eager else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            out = deblur_module(pic, "smoke", None, stats_out=stats, device=dev, **kw)
+            wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        runs.append((out, stats, (_counters(), wall, list(rl_mm.loop_log)), peak))
+    (out, stats, graph, peak), (out_e, stats_e, eager, peak_e) = runs
+    same = np.array_equal(out, out_e) and len(stats) == len(stats_e) and all(
+        _same_bits(torch, a["result"], b["result"]) for a, b in zip(stats, stats_e))
+    print(f"phase 11: {label}: peak device memory above the run's start, graph {peak:.3f} GiB, "
+          f"eager {peak_e:.3f} GiB")
+    _check_loops(label, sum(s["result"].iterations for s in stats), same, graph, eager)
+    del out, out_e, stats, stats_e, runs
+    for eager in (False, True) if profiled else ():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                contextlib.redirect_stdout(io.StringIO()), \
+                rl_mm._eager_outer_loop() if eager else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            deblur_module(pic, "smoke", None, device=dev, **kw)
+            wall = time.perf_counter() - t0
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        print(f"phase 11: {label} {'eager' if eager else 'graph'} loop profiled: wall "
+              f"{wall:.3f} s, device busy {busy:.3f} s, busy share {busy / wall:.3f}")
+
+
+def phase_outer_loop(torch, dev, pic19, pic24) -> None:
+    """Phase 11: every solve of this port's main path runs its outers as
+    CUDA-graph replays with the stop decided on the card (K7); here each
+    case runs again in the Python outer loop (``rl_mm._eager_outer_loop()``)
+    and must give the same bits, outers and launches (K7 aside), with one
+    host read per replay.  The counters are zeroed just before each run."""
+    t_phase = time.perf_counter()
+    window19 = (584 - 127, 795 - 127, 255, 255)  # the 1.9 MP case's mask window
+    window24 = (2000 - 256, 3000 - 256, 512, 512)  # 520^2 with mk 9: the op loop
+    blind = dict(blind=True, tau=0.0, iterations=200)
+    _ab_solve(torch, dev, "1.9MP blind 261^2 window, K2", pic19, 7, window=window19, **blind)
+    _ab_solve(torch, dev, "24MP blind 520^2 window mk 9, op loop and K3", pic24, 9,
+              window=window24, **blind)
+    _ab_solve(torch, dev, "24MP non-blind frame, 20 outers", pic24, 9)
+    for label, mk, cfg in [("high", 9, dict(conv_precision="high")),
+                           ("mixed", 7, dict(dtype="mixed")),
+                           ("use_tv collab", 7, dict(use_tv=True, tv_norm="collab"))]:
+        _ab_solve(torch, dev, f"1.9MP non-blind frame {label}, 20 outers", pic19, mk, **cfg)
+    _ab_solve(torch, dev, "1.9MP non-blind frame, early_stop 1e-2 patience 2", pic19, 7,
+              iterations=200, early_stop=1e-2, early_stop_patience=2)
+    _ab_solve(torch, dev, "1.9MP blind window, record_metrics", pic19, 7, window=window19,
+              record_metrics=True, **blind)
+    _ab_deblur(torch, dev, "deblur_module 1.9MP", pic19, bench.KW19, profiled=True)
+    _ab_deblur(torch, dev, "deblur_module 24MP exact", pic24, bench.KW24, profiled=False)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 11: {seconds:.1f} s")
+    _require(seconds <= 60.0, "phase 11 takes at most 60 s")
+
+
 def compare_deblur_batch(other: str) -> int:
     """``--deblur-batch-against DIR``: the wall of the CLI ``deblur-batch``
     on phase 7's burst (four 24 MP 16-bit TIFFs, one 9x9 PSF, mask 511),
@@ -1331,6 +1532,37 @@ def compare_deblur_batch(other: str) -> int:
     return 0
 
 
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def compare_loop_profiles() -> int:
+    """``--outer-loop-profiles``: ``profile_run`` of the 24 MP exact, 'high'
+    and 'mixed' cases in the graph outer loop and in the Python one
+    (``rl_mm._eager_outer_loop()``), in turns graph, eager, eager, graph
+    over the modes, after one unprofiled run of each mode."""
+    import torch
+
+    from ics_tpu_torch._device import exact_f32
+
+    exact_f32()
+    dev = torch.device("cuda", 0)
+    print(f"card: {_card()}, torch {torch.__version__}")
+    pic24 = make_scene(4000, 6000, *bench.SCENES[(4000, 6000)])[1]
+    modes = [dict(precision=p) for p in ("exact", "high", "mixed")]
+    for extra in modes:
+        _deblur(torch, pic24, "cuda", **{**bench.KW24, **extra})
+    for i, extra in enumerate(modes):
+        for eager in (False, True) if i % 2 == 0 else (True, False):
+            profile_run(torch, pic24, bench.KW24, extra, eager=eager)
+    torch.cuda.synchronize(dev)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1340,16 +1572,15 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--deblur-batch-against"]:
         return compare_deblur_batch(sys.argv[2])
+    if sys.argv[1:2] == ["--outer-loop-profiles"]:
+        return compare_loop_profiles()
     t_smoke = time.perf_counter()
     from ics_tpu_torch import _build
     from ics_tpu_torch._device import exact_f32
 
     exact_f32()
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = _card()
     print(f"card: {smi}")
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
@@ -1359,6 +1590,9 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, nvcc: {nvcc}, "
           f"driver {driver}")
+    # the solver replays one outer per graph without them (models/rl_mm.py)
+    print("CUDA graph conditional nodes (CUDAGraph.begin_capture_to_if_node): "
+          f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}")
     t0 = time.perf_counter()
     _build.load_library()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
@@ -1383,6 +1617,7 @@ def main() -> int:
         phase_host_and_batteries(torch, dev, pic24, burst_dir)
     launches.update(phase_conv_methods(torch, dev, pic19, pic24))
     phase_bench(torch, dev, pic19, cases)
+    phase_outer_loop(torch, dev, pic19, pic24)
 
     sources = {
         "K1": ("ics_tpu_torch/csrc/conv2d.cu", "ics_tpu/ops/pallas_conv.py:39"),
@@ -1394,6 +1629,8 @@ def main() -> int:
         "K4d": ("ics_tpu_torch/csrc/conv_mma.cu", "ics_tpu/ops/pallas_conv_mxu.py:170"),
         "K5": ("ics_tpu_torch/csrc/tv.cu", "ics_tpu/ops/pallas_tv.py:62"),
         "K6": ("ics_tpu_torch/csrc/bilateral.cu", "ics_tpu/ops/pallas_bilateral.py:58"),
+        # no TPU kernel: the stop of the solver's lax.while_loop
+        "K7": ("ics_tpu_torch/csrc/outer_loop.cu", "ics_tpu/models/rl_mm.py:543"),
     }
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -70,6 +70,9 @@ _SIGNATURES = {
     # src, out, C, H, W, radius, s, a (ops/cuda_bilateral.py::_kernel_constants),
     # stream
     "ics_bilateral": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # m_r_new, mr, ints, go, iterations, blind, tau, early, keep, patience,
+    # use_stopping, stream (ops/cuda_outer.py)
+    "ics_outer_stop": [_P, _P, _P, _P, _I, _I, _F, _I, _F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

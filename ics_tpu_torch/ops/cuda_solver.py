@@ -85,7 +85,9 @@ def inner_loop_ops(u, image, psf, *, step_factor, lambd, blind, correlation,
     else:  # each image's maximum, on each of its channels
         lane_max = lambda a: torch.amax(a.reshape(lanes, -1), dim=1).repeat_interleave(
             a.shape[0] // lanes)[:, None, None]
-    sf = torch.tensor(step_factor, dtype=torch.float32, device=u.device)
+    # a fill on the device: a solve captured as a CUDA graph copies nothing
+    # from the host
+    sf = torch.full((), step_factor, dtype=torch.float32, device=u.device)
     inv_un = 1.0 / (u_m * u_n)
     ut = u
     psf_rot = torch.flip(psf, dims=(1, 2)).contiguous()

@@ -1,7 +1,7 @@
 """On-card certification and microbenchmarks of the port's CUDA kernels, and
 the blind-restoration batteries (counterpart of ics_tpu/utils/selftest.py).
 
-``certify_kernels`` holds every hand-written kernel (K1-K6) against its
+``certify_kernels`` holds every hand-written kernel (K1-K7) against its
 plain PyTorch twin on the GPU at the shapes of the 24 MP path, then the K2
 inner loop against the op loop on one blind solve, then the pipeline's
 pre- and postprocess and cubic resize against the same steps done one
@@ -225,6 +225,16 @@ def _twice(torch, label: str, fn) -> list:
         except Exception as exc:
             raise _Fault(f"{label}, {stage}: {type(exc).__name__}: {exc}") from exc
     return outs
+
+
+def _once(torch, label: str, fn) -> None:
+    """One call of a kernel's wrapper, the card synchronized after it (as
+    ``_twice``, for a kernel whose call changes its state)."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except Exception as exc:
+        raise _Fault(f"{label}: {type(exc).__name__}: {exc}") from exc
 
 
 def _ulps(torch, got, ref) -> float:
@@ -592,6 +602,54 @@ class _Certify:
             del x, got, again, ref
         self.rows.setdefault("K6", {})["max_abs_err"] = worst
 
+    def k7(self):
+        """K7 against its twin on this device, bitwise, state by state, over
+        M_r sequences that take each branch of the stop (blind, tau, the
+        plateau, no stopping, NaN); then one launch timed."""
+        from ics_tpu_torch.ops import cuda_outer
+
+        torch, worst = self.torch, 0.0
+        falling = [1.0 - 6e-4 * i for i in range(8)]
+        for label, seq, kw in [
+            ("blind", [5.0, 4.0, 3.0, 3.5, 2.0], dict(blind=True, tau=0.0)),
+            ("non-blind tau 1e-4", [3.0, 2.0, 1.9, 1.9001, 1.8, 1.8006],
+             dict(blind=False, tau=1e-4)),
+            ("plateau", [1.0, 0.9995, 0.999, 0.9988, 0.9987, 0.9986],
+             dict(blind=False, tau=1e9, early_stop=1e-3, patience=2)),
+            ("slow decrease", falling, dict(blind=False, tau=1e9, early_stop=1e-3, patience=2)),
+            ("no stopping", [1.0, 2.0, 3.0], dict(blind=True, tau=0.0, use_stopping=False)),
+            ("NaN", [1.0, float("nan"), float("nan")], dict(blind=False, tau=0.0)),
+        ]:
+            kw = dict(iterations=len(seq), **kw)
+            (mr, ints, go), (pmr, pints, pgo) = (
+                cuda_outer.initial_state(self.dev, kw["iterations"]) for _ in range(2))
+            use, same = kw.get("use_stopping", True), True
+            for it, value in enumerate(seq):
+                m_r_new = torch.full((), value, dtype=torch.float32, device=self.dev)
+                _once(torch, f"K7 {label}, outer {it}", lambda: cuda_outer.outer_stop(
+                    m_r_new if use else mr[0], mr, ints, go, **kw))
+                cuda_outer.outer_stop_plain(m_r_new if use else pmr[0], pmr, pints, pgo, **kw)
+                # bits, so that a NaN M_r compares too
+                same = same and torch.equal(mr.view(torch.int32), pmr.view(torch.int32)) \
+                    and torch.equal(ints, pints) and torch.equal(go, pgo)
+                worst = max(worst, float(torch.nan_to_num(torch.abs(mr - pmr)).max()))
+                if not bool(pgo):
+                    break
+            self.report(f"K7 {label}: [it, since_best, stop, go] {ints.tolist()}, bitwise "
+                        f"equal to the twin: {same}")
+            self.check(same, f"K7 {label} bitwise equal to its twin at every outer")
+        mr, ints, go = cuda_outer.initial_state(self.dev, 10**6)
+        pmr, pints, pgo = cuda_outer.initial_state(self.dev, 10**6)
+        m_r_new = torch.full((), 0.5, dtype=torch.float32, device=self.dev)
+        kw = dict(iterations=10**6, blind=False, tau=1e9, early_stop=1e-3, patience=10**6)
+        ms, plain_ms, _, dev_ms = _time_turns(
+            torch, lambda: cuda_outer.outer_stop(m_r_new, mr, ints, go, **kw),
+            lambda: cuda_outer.outer_stop_plain(m_r_new, pmr, pints, pgo, **kw), None, 20)
+        self.report(f"K7: kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms")
+        # M_r read; mr and ints read and written; go written
+        self.rows["K7"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                               max_abs_err=worst, **_bound(4 + 2 * (12 + 16) + 1, 10, "f32"))
+
     def inner_loop_routes(self):
         """The K2 inner loop (``inner_loop='pallas'``) against the op loop
         (``'xla'``, K1 and K3) on one 255^2 blind solve of 3 outers: u
@@ -667,7 +725,7 @@ def certify_kernels(report=print, device="cuda", rows: dict | None = None) -> bo
     dev = _cuda(device)
     check = _Checks(report)
     cert = _Certify(torch, dev, check, report, {} if rows is None else rows)
-    for section in (cert.k1, cert.k2, cert.k3, cert.k4, cert.k5, cert.k6,
+    for section in (cert.k1, cert.k2, cert.k3, cert.k4, cert.k5, cert.k6, cert.k7,
                     cert.inner_loop_routes, cert.glue):
         try:
             section()

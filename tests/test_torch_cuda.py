@@ -7,11 +7,13 @@ card and no JAX; tests/conftest.py imports JAX, so skip it there:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import contextlib
+
 import pytest
 import torch
 
 from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
-                               cuda_solver, cuda_tv)
+                               cuda_outer, cuda_solver, cuda_tv)
 from ics_tpu_torch.utils.selftest import HIGHEST_TOL
 
 
@@ -693,7 +695,7 @@ def test_certify_kernels_passes_on_gpu():
         line for line in lines if "FAIL" in line or "ERROR" in line)
     assert lines[-1].split(": ")[-1].endswith("checks passed")
     keys = {"ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err"}
-    assert set(rows) == {"K1", "K2", "K3", "K4s", "K4", "K4h", "K4d", "K5", "K6"}
+    assert set(rows) == {"K1", "K2", "K3", "K4s", "K4", "K4h", "K4d", "K5", "K6", "K7"}
     assert all(set(row) == keys for row in rows.values())
     # the library calls timed beside K1, K3, K4h and K4d are held against
     # the twins
@@ -749,3 +751,73 @@ def test_examples_on_gpu(tmp_path):
                  tmp_path / "hsv" / "scene-hue-shift.tif"):
         out = imread(str(path))
         assert out.dtype == np.uint16 and out.shape == (64, 64, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blind,tau,early_stop,use_stopping", [
+    (True, 0.0, 0.0, True), (False, 1e-4, 0.0, True), (False, 1e9, 1e-3, True),
+    (False, 0.0, 1e-3, True), (True, 0.0, 1e-3, True), (True, 0.0, 0.0, False),
+])
+def test_k7_matches_twin_bitwise_on_gpu(blind, tau, early_stop, use_stopping):
+    """K7 and its twin on the same CUDA tensors, step by step over a seeded
+    M_r walk with plateaus, rises and a NaN: the same bits at every outer."""
+    dev = _need_gpu()
+    gen = torch.Generator().manual_seed(int(blind) + 2 * int(early_stop > 0))
+    walk = torch.cumprod(1.0 + (torch.rand(60, generator=gen) - 0.7) * 2e-3, 0)
+    walk[45] = float("nan")
+    kw = dict(iterations=len(walk), blind=blind, tau=tau, early_stop=early_stop, patience=3,
+              use_stopping=use_stopping)
+    state, twin = (cuda_outer.initial_state(dev, len(walk)) for _ in range(2))
+    for value in walk.tolist():
+        m_r_new = torch.full((), value, dtype=torch.float32, device=dev)
+        before = cuda_outer.launches
+        cuda_outer.outer_stop(m_r_new if use_stopping else state[0][0], *state, **kw)
+        assert cuda_outer.launches == before + 1
+        cuda_outer.outer_stop_plain(m_r_new if use_stopping else twin[0][0], *twin, **kw)
+        assert torch.equal(state[0].view(torch.int32), twin[0].view(torch.int32))
+        assert torch.equal(state[1], twin[1]) and torch.equal(state[2], twin[2])
+        if not bool(twin[2]):
+            break
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,m,mk,blind,tau,cfg", [
+    ("blind K2 window", 61, 5, True, 0.0, dict(inner_loop="pallas")),
+    ("blind op-loop window", 61, 7, True, 0.0, dict(inner_loop="xla", record_metrics=True)),
+    ("non-blind frame", 150, 9, False, 1e-4, {}),
+    ("non-blind plateau, mixed", 150, 9, False, 1e9,
+     dict(dtype="mixed", early_stop=1e-2, early_stop_patience=2)),
+    ("use_tv collab", 96, 5, True, 0.0, dict(use_tv=True, tv_norm="collab")),
+])
+def test_graph_loop_matches_the_eager_loop_bitwise_on_gpu(label, m, mk, blind, tau, cfg):
+    """A solve replayed as CUDA graphs against the same solve in the Python
+    outer loop (``_eager_outer_loop()``): the same bits, outers and
+    launches; one host read per replay; K7 once per outer."""
+    from ics_tpu_torch.models import rl_mm
+
+    dev = _need_gpu()
+    image, u, psf, win = _solver_problem(m, mk)
+    kw = dict(tau=tau, iterations=40, lambd=1000.0, blind=blind,
+              config=rl_mm.RLConfig(**cfg), device=dev)
+    runs = []
+    for eager in (False, True):
+        before = rl_mm._read_launches()
+        with rl_mm._eager_outer_loop() if eager else contextlib.nullcontext():
+            res = rl_mm.richardson_lucy_MM(image, u, psf, *win, **kw)
+        torch.cuda.synchronize()
+        runs.append((res, [a - b for a, b in zip(rl_mm._read_launches(), before)]))
+        if not eager:
+            log = rl_mm.loop_log[-1]
+    (got, got_n), (want, want_n) = runs
+    k7 = [mod for mod, _ in rl_mm._launch_counters()].index(cuda_outer)
+    assert got.iterations > 1 and bool(torch.isfinite(got.u).all())
+    assert (log["route"], log["outers"], log["reads"]) == ("graph", got.iterations,
+                                                          got.iterations - 1)
+    assert log["capture_ms"] > 0
+    for name in ("u", "u_full", "psf", "image", "stats"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    if got.trajectory is not None:
+        for key, values in got.trajectory.items():
+            assert (values == want.trajectory[key]).all(), key
+    assert got_n[k7] == got.iterations and want_n[k7] == 0
+    assert got_n[:k7] + got_n[k7 + 1:] == want_n[:k7] + want_n[k7 + 1:]

@@ -31,4 +31,5 @@ def test_the_walk_sees_the_port():
     rel = {str(p.relative_to(ROOT)) for p in FILES}
     assert {"ics_tpu_torch/runtime/codecs.py", "ics_tpu_torch/runtime/loader.py",
             "ics_tpu_torch/utils/selftest.py", "ics_tpu_torch/examples/shard_deblur.py",
-            "ics_tpu_torch/examples/deblur_cases.py", "ics_tpu_torch/bench.py"} <= rel
+            "ics_tpu_torch/examples/deblur_cases.py", "ics_tpu_torch/bench.py",
+            "ics_tpu_torch/ops/cuda_outer.py"} <= rel
