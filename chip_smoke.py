@@ -4,17 +4,29 @@
     python3 chip_smoke.py     # one GPU, a few minutes with the kernel build
     python3 chip_smoke.py --deblur-batch-against DIR
         # the CLI deblur-batch's wall from the checkout DIR against this one
+    python3 chip_smoke.py --capture-memory
+        # three runs of each 1.9 MP and 24 MP case: capture and
+        # instantiation ms per solve, peak and reserved memory, and the
+        # memory that releasing the capture pool hands back
+    python3 chip_smoke.py --profiled-while on|off
+        # three reps of 24 MP exact, 'pd' and the 4x24 MP 'map' burst in the
+        # WHILE loop, under torch.profiler or not (fault E, ROADMAP.md)
     python3 chip_smoke.py --outer-loop-profiles
-        # phase 5's profiled 24 MP exact, 'high' and 'mixed' runs in the
-        # graph outer loop and in the Python one, in turns
+        # phase 5's profiled 24 MP exact, 'high', 'mixed', 'pam' and 'pd'
+        # runs in the WHILE outer loop and in the Python one, in turns
 
 Phases:
   1. probe: the card and its driver (nvidia-smi), torch.version.cuda, nvcc,
-     kernel build;
+     kernel build; the CUDA driver's and the kernel library's runtime
+     versions, ``CUDAGraph(keep_graph=True)`` and ``raw_cuda_graph()``, and
+     a WHILE node whose body holds the cooperative kernels K2 and K3, held
+     bitwise against the same outers run eagerly;
   2. ``ics_tpu_torch.utils.selftest.certify_kernels``: each
      hand-written kernel (K1 conv, K2 inner loop, K3 PSF gradient, K4s
      split, K4 bf16, K4h f32-at-HIGHEST and K4d f32-at-DEFAULT tensor-core
-     convs, K5 TV stencil, K6 bilateral filter, K7 the outer loop's stop)
+     convs, K5 TV stencil, K6 bilateral filter, K7 the outer loop's stop;
+     K7w, which hands K7's ``go`` to the WHILE node, by its effect: the node
+     runs outers - 1 bodies and leaves K7's twin's state)
      against its plain PyTorch twin on the card, at its path's
      shapes, with CUDA-event median times of both and of the one PyTorch
      call that computes the same function where there is one, taken in
@@ -28,9 +40,10 @@ Phases:
      the card could take: bytes over 3.35 TB/s or operations over the peak
      rate of their type, whichever is larger) is computed from the shapes
      (K6's also counts the exponentials the function needs at the SFU's
-     rate).  Every one-image solve from phase 3 on runs its outers as
-     CUDA-graph replays, the stop decided on the card by K7
-     (models/rl_mm.py); phase 11 holds that loop against the Python one;
+     rate).  Every one-image solve from phase 3 on (MM, PAM, PD) and
+     ``tv_denoise`` runs its outers after the first as one launch of a
+     WHILE graph, the stop decided on the card by K7 (models/rl_mm.py);
+     phases 11 and 12 hold that loop against the Python one;
   3. the crop-scale pipeline on CUDA against the same pipeline on the CPU
      (SSIM of the uint16 outputs), in exact, mixed, high, fast, use_tv
      under each tv_norm, and with the TV-PAM and TV-PD solvers;
@@ -43,16 +56,19 @@ Phases:
   5. the 24 MP case (bench.py's kwargs) in exact f32, the main path, then
      in precision 'high', in 'mixed', with use_tv, and with the 'pam' and
      'pd' solvers: the launch counters are zeroed just before each run;
-     K1-K3 must be > 0 after the exact run, K4s after 'high', K4 after
-     'mixed', K5 after use_tv, K1, K3 and K5 after 'pam' and K3 after 'pd';
-     then SSIM of the 24 MP scene as CUDA tensors (the metrics' device
-     path in bands, K1) against its float64 host path; then one more
-     exact, 'high', 'mixed', 'pam' and 'pd' run each under torch.profiler:
-     each kernel's summed device time and launches, K1, K4s and K4 split
-     into full frames and blind windows (one profiled kernel per wrapper
-     launch), one psf_grad kernel per K3 call, the device time per outer
-     and cuFFT's share of the device time (for the mm runs also the graph
-     solves, their host reads and capture time); then the time of one
+     K1-K3, K7 and K7w must be > 0 after the exact run, K4s after 'high',
+     K4 after 'mixed', K5 after use_tv, K1, K3 and K5 after 'pam' and K3
+     after 'pd'; then SSIM of the 24 MP scene as CUDA tensors (the
+     metrics' device path in bands, K1) against its float64 host path;
+     then exact, 'high', 'mixed', 'pam' and 'pd' twice more each: in the
+     WHILE loop, unprofiled, the wall, the solves, their host reads,
+     capture and instantiation time; in the Python loop under
+     torch.profiler each kernel's summed device time and launches, K1, K4s
+     and K4 split into full frames and blind windows (one profiled kernel
+     per wrapper launch), one psf_grad kernel per K3 call, the device time
+     per outer, cuFFT's share, its busy share, and that device time over
+     the WHILE loop's wall (derived from two runs: no WHILE launch runs
+     under the profiler, ``profile_run``); then the time of one
      rfft2 + irfft2 pair on PD's prime-length frame against a smooth one;
   6. the command line (``ics_tpu_torch.cli.main``) on the card, TIFF in and
      TIFF out: ``bilateral``, ``bilateral-lab``, ``usm`` and ``tv-denoise``
@@ -67,7 +83,8 @@ Phases:
      ``batched_deconvolve`` 'map' (each lane bitwise one
      ``richardson_lucy_MM`` call) and 'vmap' (SSIM >= 0.999 against 'map';
      K1 at most 10 launches per outer of the slowest lane), each profiled
-     for its device time per outer per lane and peak memory; (b) the CLI
+     in the Python outer loop for its device time per outer per lane and
+     peak memory ('map''s lanes against WHILE-loop calls); (b) the CLI
      ``deblur-batch`` on those frames as 16-bit TIFFs, alone and with
      ``--shard 1`` (one NCCL rank), bitwise equal to each other and to
      (a)'s 'map' run; (c) the 24 MP ``deblur_module(mesh=...)`` on two
@@ -107,19 +124,26 @@ Phases:
      launched, finite), the exact probe's device time per outer by kernel
      (torch.profiler), and its JSON line assembled from these and phase
      5's 24 MP runs (``bench.KW24``), with BENCH_r05.json's keys;
- 11. the outer loop: each solve case in the graph loop (untimed), in the
-     Python outer loop (``rl_mm._eager_outer_loop()``) and in the graph
+ 11. the outer loop: each solve case in the WHILE loop (untimed), in the
+     Python outer loop (``rl_mm._eager_outer_loop()``) and in the WHILE
      loop again, bitwise equal (u, u_full, psf,
      image, stats, the record; ``deblur_module``'s uint16 output and every
-     level's result), the same outers and launches (K7 once per outer in
-     the graph loop, never in the Python one), one host read per replay
-     (outers - 1 per solve); the
+     level's result), the same outers and launches (K7 and K7w once per
+     outer in the WHILE loop, never in the Python one), one host read per
+     solve; the
      1.9 MP blind mask window (K2), a 24 MP blind 520^2 window (the op loop,
      K3), the 24 MP non-blind frame at 20 outers, the 1.9 MP frame in
      'high', 'mixed' and use_tv collab, non-blind early_stop,
-     record_metrics, and ``deblur_module`` at 1.9 MP (also profiled, both
-     loops) and 24 MP exact (peak memory of both); walls, host reads and
-     capture milliseconds per solve.  At most 60 s.
+     record_metrics, and ``deblur_module`` at 1.9 MP (the Python loop also
+     profiled: its busy share, and its device time over the WHILE loop's
+     wall) and 24 MP exact (peak memory of
+     both); walls, host reads,
+     capture and instantiation milliseconds per solve.  At most 60 s;
+ 12. PAM, PD and ``tv_denoise`` on the same loop, as in phase 11: PAM and
+     PD on the 1.9 MP blind mask window and non-blind frame (20 outers),
+     ``deblur_module`` at 1.9 MP with each, the 24 MP PD frame at 20 fixed
+     outers, and ``tv_denoise`` (50 iterations) on the 24 MP frame, which
+     reads nothing until its result.  At most 90 s.
 
 SSIM comes from ``ics_tpu_torch.utils.metrics``; every pass/fail comparison
 computes it on the CPU, so the yardstick is independent of the kernels.
@@ -157,6 +181,58 @@ def _require(cond: bool, what: str) -> None:
     print(("PASS " if cond else "FAIL ") + what, flush=True)
     if not cond:
         raise SmokeFailure(what)
+
+
+# ---------------------------------------------------------------- phase 1
+def probe_while_node(torch, dev) -> None:
+    """What the WHILE route needs: the CUDA driver's and the kernel library's
+    runtime versions (12.3 or later), ``CUDAGraph(keep_graph=True)`` and
+    ``raw_cuda_graph()``, then a WHILE node whose body holds the cooperative
+    kernels K2 and K3 (CUDA allows them in a conditional body only without
+    MPS): five outers of a 61^2 blind K2 step and a K3 gradient, counted by
+    K7, built, launched and held bitwise against the same five outers run
+    eagerly."""
+    from ics_tpu_torch.models import rl_mm
+    from ics_tpu_torch.ops import cuda_correlate, cuda_outer, cuda_solver
+
+    driver, runtime = cuda_outer.cuda_versions()
+    print(f"CUDA driver {driver}, kernel library runtime {runtime} (cudaDriverGetVersion, "
+          f"cudaRuntimeGetVersion; WHILE nodes need 12030)")
+    try:
+        keep = torch.cuda.CUDAGraph(keep_graph=True)
+        del keep
+        keep_graph = True
+    except TypeError:
+        keep_graph = False
+    raw = hasattr(torch.cuda.CUDAGraph, "raw_cuda_graph")
+    print(f"torch.cuda.CUDAGraph(keep_graph=True): {keep_graph}, raw_cuda_graph(): {raw}")
+    _require(driver >= 12030 and runtime >= 12030 and keep_graph and raw,
+             "the WHILE route's CUDA 12.3 and torch keep_graph/raw_cuda_graph are there")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    image = torch.rand((3, 61, 61), device=dev, generator=gen) * 0.6 + 0.2
+    u0 = torch.nn.functional.pad(image[None], (2, 2, 2, 2), mode="replicate")[0].contiguous()
+    psf0 = torch.full((3, 5, 5), 1.0 / 25, device=dev)
+
+    def outer(u, psf, gk):
+        u, psf, err = cuda_solver.inner_loop_planar(u, image, psf, step_factor=1e-3,
+                                                    lambd=1e3, blind=True, correlation=False)
+        return dict(u=u, psf=psf, gk=cuda_correlate.psf_gradient_planar(u, err))
+
+    state = dict(u=u0.clone(), psf=psf0.clone(), gk=torch.zeros_like(psf0))
+    for _ in range(5):
+        state = outer(**state)
+    st = rl_mm._Outer(5, u=u0.clone(), psf=psf0.clone(), gk=torch.zeros_like(psf0))
+    t0 = time.perf_counter()
+    rl_mm._state_loop(outer, st, iterations=5, blind=True, tau=0.0, use_stopping=False)
+    wall = time.perf_counter() - t0
+    log = rl_mm.loop_log[-1]
+    same = all(torch.equal(getattr(st, k), state[k]) for k in state)
+    print(f"WHILE node over a body with K2 and K3 (cooperative launches): route "
+          f"{log['route']}, {log['outers']} outers, {log['reads']} read, capture "
+          f"{log['capture_ms']:.2f} ms, build + instantiation {log['instantiate_ms']:.2f} ms, "
+          f"{wall * 1e3:.2f} ms in all; bitwise equal to the eager outers: {same}")
+    _require(log["route"] == "while" and log["outers"] == 5 and log["reads"] == 1 and same,
+             "a WHILE node runs cooperative K2 and K3 in its body, bitwise the eager outers")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -210,25 +286,33 @@ def _report(label, wall, compute, levels):
 
 
 def _counters():
-    """{kernel: launches so far} over every wrapper's counter."""
+    """{kernel: launches so far} over every wrapper's counter, once the
+    fixed-count WHILE launches not read yet are counted (K7w's own count on
+    the card, models/rl_mm.py::_settle_unread)."""
+    from ics_tpu_torch.models import rl_mm
     from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
                                    cuda_outer, cuda_solver, cuda_tv)
 
+    rl_mm._settle_unread()
     return {
         "K1": cuda_conv.launches, "K2": cuda_solver.launches,
         "K3": cuda_correlate.launches, "K4s": cuda_conv_mma.split_launches,
         "K4": cuda_conv_mma.bf16_launches, "K4h": cuda_conv_mma.highest_launches,
         "K4d": cuda_conv_mma.default_launches, "K5": cuda_tv.launches,
         "K6": cuda_bilateral.launches, "K7": cuda_outer.launches,
+        "K7w": cuda_outer.while_launches,
     }
 
 
 def _zero_counters() -> None:
+    from ics_tpu_torch.models import rl_mm
     from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
                                    cuda_outer, cuda_solver, cuda_tv)
 
+    rl_mm._settle_unread()  # an earlier run's launches are not counted after the zero
     for mod in (cuda_conv, cuda_solver, cuda_correlate, cuda_tv, cuda_bilateral, cuda_outer):
         mod.launches = 0
+    cuda_outer.while_launches = 0
     cuda_conv_mma.split_launches = cuda_conv_mma.bf16_launches = 0
     cuda_conv_mma.highest_launches = cuda_conv_mma.default_launches = 0
 
@@ -305,7 +389,7 @@ def phase_pipelines(torch, dev):
     kw24 = bench.KW24
     launches, solver_launches = {}, {}
     for label, extra, names in [
-        ("exact", dict(precision="exact"), ("K1", "K2", "K3", "K7")),
+        ("exact", dict(precision="exact"), ("K1", "K2", "K3", "K7", "K7w")),
         ("high", dict(precision="high"), ("K4s",)),
         ("mixed", dict(precision="mixed"), ("K4",)),
         ("use_tv collab", dict(precision="exact", use_tv=True, tv_norm="collab"), ("K5",)),
@@ -367,7 +451,8 @@ def prime_fft_times(torch, dev) -> None:
 _KERNEL_NAMES = [("conv2d_kernel", "K1"), ("inner_loop_kernel", "K2"), ("psf_grad", "K3"),
                  ("conv_mma_kernel<1,", "K4s"), ("conv_mma_kernel<0,", "K4"),
                  ("conv_mma_kernel<2,", "K4h"), ("conv_mma_kernel<3,", "K4d"),
-                 ("tv_kernel", "K5"), ("bilateral_kernel", "K6"), ("outer_stop_kernel", "K7")]
+                 ("tv_kernel", "K5"), ("bilateral_kernel", "K6"), ("outer_stop_kernel", "K7"),
+                 ("while_go_kernel", "K7w")]
 
 
 # the wrappers whose launches are split by shape class in the profile
@@ -380,7 +465,8 @@ _captured = []  # (add, key) of the wrapper calls in the graph being captured
 
 def _note(add, key) -> None:
     """``add(key, 1)`` for a wrapper call that launches; a call made while a
-    CUDA graph is captured launches once per replay (``_replays_noted``)."""
+    CUDA graph is captured launches once per body that the WHILE node runs
+    (``_replays_noted``)."""
     import torch
 
     if torch.cuda.is_current_stream_capturing():
@@ -391,14 +477,14 @@ def _note(add, key) -> None:
 
 @contextlib.contextmanager
 def _replays_noted():
-    """Within the block, each replay of a solve's graph (models/rl_mm.py::
-    _graph_loop) adds the wrapper calls noted during its capture, times the
-    outers the replay ran, as the launch counters do."""
+    """Within the block, each WHILE launch of a solve (models/rl_mm.py::
+    _while_loop) adds the wrapper calls noted during its body's capture,
+    times the bodies the node ran, as the launch counters do."""
     from ics_tpu_torch.models import rl_mm
 
-    loop, count = rl_mm._graph_loop, rl_mm._count_replays
+    loop, count = rl_mm._while_loop, rl_mm._count_replays
 
-    def graph_loop(*args, **kw):
+    def while_loop(*args, **kw):
         _captured.clear()
         return loop(*args, **kw)
 
@@ -407,26 +493,50 @@ def _replays_noted():
             add(key, outers)
         count(per_body, outers)
 
-    rl_mm._graph_loop, rl_mm._count_replays = graph_loop, count_replays
+    rl_mm._while_loop, rl_mm._count_replays = while_loop, count_replays
     try:
         yield
     finally:
-        rl_mm._graph_loop, rl_mm._count_replays = loop, count
+        rl_mm._while_loop, rl_mm._count_replays = loop, count
 
 
-def profile_run(torch, pic24, kw24, extra: dict, eager: bool = False) -> None:
-    """One more 24 MP run with ``extra`` (a precision or a solver) under
-    torch.profiler: each kernel's summed device time and launches, K1, K4s
-    and K4 split by shape class (a full frame, or a blind window of at most
-    600x600: the op loop's 369^2 and 520^2 levels), and cuFFT's share.
-    ``eager``: in the Python outer loop (``rl_mm._eager_outer_loop()``)."""
+def profile_run(torch, pic24, kw24, extra: dict) -> None:
+    """One more 24 MP run with ``extra`` (a precision or a solver) in the
+    WHILE loop, unprofiled: its wall, solves, host reads, capture and
+    instantiation time.  Then one under torch.profiler, which puts every
+    solve in the Python outer loop (``rl_mm._eager_loop``): its wall, device
+    busy seconds and busy share, each kernel's summed device time and
+    launches, K1, K4s and K4 split by shape class (a full frame, or a blind
+    window of at most 600x600: the op loop's 369^2 and 520^2 levels), and
+    cuFFT's share.  Both loops run the same kernels on the same shapes;
+    that device time over the WHILE loop's wall is printed as a derived
+    number, not as the WHILE run's busy share, which no trace here reads.
+    No WHILE launch runs under the profiler: on this stack it names kernels
+    inside the node's bodies wrongly, drops their events as a process goes
+    on, and a profiled WHILE run once hit an illegal memory access
+    (ROADMAP.md section 3, fault E)."""
     label = " ".join(f"{v}" if k == "precision" else f"{k}={v}" for k, v in extra.items())
-    label += " eager loop" if eager else ""
     from torch.profiler import ProfilerActivity, profile
 
     from ics_tpu_torch.models import rl_mm
     from ics_tpu_torch.ops import cuda_conv, cuda_conv_mma
 
+    _zero_counters()
+    rl_mm.loop_log.clear()
+    t0 = time.perf_counter()
+    _, _, _, levels = _deblur(torch, pic24, "cuda", **{**kw24, **extra})
+    wall_while = time.perf_counter() - t0
+    counts, solves = _counters(), list(rl_mm.loop_log)
+    outers = sum(n for _, _, n, _ in levels)
+    _require(sum(e["outers"] for e in solves) == outers == counts["K7"] == counts["K7w"]
+             and all(e["route"] == "while" and e["reads"] == (e["outers"] > 1)
+                     and e["k7w"] == (e["outers"] if e["outers"] > 1 else 0) for e in solves),
+             f"24MP {label}: every level one WHILE solve and one read, K7 and K7w (its count on "
+             "the card) once per outer")
+    print(f"24MP {label} WHILE loop: wall {wall_while:.3f} s, {len(solves)} solves, host reads "
+          f"{sum(e['reads'] for e in solves)}, capture ms "
+          f"{sum(e['capture_ms'] or 0.0 for e in solves):.1f}, build + instantiation ms "
+          f"{sum(e['instantiate_ms'] or 0.0 for e in solves):.1f}")
     mods = {"cuda_conv": cuda_conv, "cuda_conv_mma": cuda_conv_mma}
     classes = {kid: [] for kid in _BY_SHAPE}  # per kernel, one entry per launch
     originals = {kid: getattr(mods[m], f) for kid, (m, f) in _BY_SHAPE.items()}
@@ -435,8 +545,7 @@ def profile_run(torch, pic24, kw24, extra: dict, eager: bool = False) -> None:
         def call(a, k, mode):
             if a.device.type == "cuda":
                 size = a.shape[1] * a.shape[2]
-                _note(lambda cls, n: classes[kid].extend([cls] * n),
-                      "window" if size <= 600 * 600 else "frame")
+                classes[kid].append("window" if size <= 600 * 600 else "frame")
             return originals[kid](a, k, mode)
         return call
 
@@ -444,9 +553,7 @@ def profile_run(torch, pic24, kw24, extra: dict, eager: bool = False) -> None:
         setattr(mods[m], f, classified(kid))
     try:
         _zero_counters()
-        rl_mm.loop_log.clear()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
-                _replays_noted(), rl_mm._eager_outer_loop() if eager else contextlib.nullcontext():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the Python loop
             t0 = time.perf_counter()
             _, _, _, levels = _deblur(torch, pic24, "cuda", **{**kw24, **extra})
             wall = time.perf_counter() - t0
@@ -457,6 +564,14 @@ def profile_run(torch, pic24, kw24, extra: dict, eager: bool = False) -> None:
     kernels = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    _require(sum(n for _, _, n, _ in levels) == outers, f"24MP {label}: the same outers in both "
+             "loops")
+    print(f"profile 24MP {label} eager loop: wall {wall:.3f} s (profiled), device busy "
+          f"{busy:.3f} s, busy share {busy / wall:.3f}, {len(kernels)} device events, {outers} "
+          f"outers, {busy / outers * 1e3:.3f} ms device time per outer (all levels); derived: "
+          f"that device time over the WHILE loop's wall {busy / wall_while:.3f} (not a trace of "
+          "the WHILE run)")
     sums, other = {}, {}
     seen = {kid: 0 for kid in _BY_SHAPE}
     for e in kernels:
@@ -472,26 +587,11 @@ def profile_run(torch, pic24, kw24, extra: dict, eager: bool = False) -> None:
             continue
         n, t = sums.get(kid, (0, 0.0))
         sums[kid] = (n + 1, t + us)
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     _require(all(seen[k] == len(classes[k]) for k in seen),
              f"profiler {label}: one K1/K4s/K4 kernel per wrapper launch")
     k3_kernels = sums.get("K3", (0, 0.0))[0]
     print(f"profile 24MP {label}: {k3_kernels} psf_grad kernels, K3 launches {counts['K3']}")
     _require(k3_kernels == counts["K3"], f"profiler {label}: one psf_grad kernel per K3 call")
-    outers = sum(n for _, _, n, _ in levels)
-    print(f"profile 24MP {label}: wall {wall:.3f} s (profiled), device busy {busy:.3f} s, "
-          f"busy share {busy / wall:.3f}, {outers} outers, "
-          f"{busy / outers * 1e3:.3f} ms device time per outer (all levels)")
-    solves = list(rl_mm.loop_log)
-    k7_kernels = sums.get("K7", (0, 0.0))[0]
-    _require(eager or "solver" in extra
-             or (sum(e["outers"] for e in solves) == outers == counts["K7"] == k7_kernels
-                 and all(e["route"] == "graph" for e in solves)),
-             f"profiler {label}: every level a graph solve, K7 once per outer in the trace")
-    if solves:
-        print(f"profile 24MP {label}: {len(solves)} graph solves, host reads "
-              f"{sum(e['reads'] for e in solves)}, capture ms "
-              f"{sum(e['capture_ms'] or 0.0 for e in solves):.1f}")
     report = {k: {"launches": n, "device_s": t / 1e6} for k, (n, t) in sorted(sums.items())}
     print(f"profile 24MP {label} kernels: " + json.dumps(report))
     fft = [(n, t) for name, (n, t) in other.items() if "fft" in name.lower()]
@@ -599,7 +699,11 @@ def _device_seconds(torch, prof) -> float:
 def _batch_runs(torch, dev, imgs, us, psfs, window):
     """(a): the burst through batched_deconvolve, 'map' then 'vmap', each
     under torch.profiler with the counters zeroed just before it; every
-    'map' lane against a single richardson_lucy_MM call."""
+    'map' lane against a single richardson_lucy_MM call.  'map' runs its
+    lanes in the Python outer loop here (a solve under the profiler takes
+    it: models/rl_mm.py::_eager_loop), so the single calls, in the WHILE loop,
+    hold the two loops against each other; (b) times the CLI's 'map' in
+    the WHILE loop."""
     from torch.profiler import ProfilerActivity, profile
 
     from ics_tpu_torch.cli import batch_codes
@@ -612,7 +716,7 @@ def _batch_runs(torch, dev, imgs, us, psfs, window):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         _zero_counters()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the Python loop
             t0 = time.perf_counter()
             u_b, _, stats_b = batched_deconvolve(imgs, us, psfs, *window, schedule=schedule,
                                                  device=dev, **kw)
@@ -621,7 +725,8 @@ def _batch_runs(torch, dev, imgs, us, psfs, window):
         counts = _counters()
         outers = [int(n) for n in stats_b[:, 0].tolist()]
         device_s = _device_seconds(torch, prof)
-        print(f"burst 4x24MP '{schedule}': wall {wall:.3f} s, per-lane outers {outers}, "
+        print(f"burst 4x24MP '{schedule}' (Python outer loop, profiled): wall {wall:.3f} s, "
+              f"per-lane outers {outers}, "
               f"device {device_s:.3f} s, {device_s / sum(outers) * 1e3:.3f} ms device time per "
               f"outer per lane, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, "
               f"launches {json.dumps(counts)}")
@@ -1074,12 +1179,16 @@ def phase_host_and_batteries(torch, dev, pic24, burst_dir: str) -> None:
 
 
 # ---------------------------------------------------------------- phase 9
-def _rl(torch, dev, pic, mk, blind=False, window=None, tau=1e9, iterations=20, **cfg):
-    """``richardson_lucy_MM`` on the uint8 frame ``pic`` (or its ``window``:
-    top, left, rows, columns) with the scene's mk x mk Gaussian PSF, by
-    default 20 outers (tau 1e9: the non-blind stop never fires); (result,
-    launches, seconds), the counters zeroed just before the run."""
+def _rl(torch, dev, pic, mk, blind=False, window=None, tau=1e9, iterations=20, solver="mm",
+        **cfg):
+    """``richardson_lucy_MM`` (``solver`` 'pam' or 'pd': their solvers, with
+    their default configurations) on the uint8 frame ``pic`` (or its
+    ``window``: top, left, rows, columns) with the scene's mk x mk Gaussian
+    PSF, by default 20 outers (tau 1e9: the non-blind stop never fires);
+    (result, launches, seconds), the counters zeroed just before the run."""
     from ics_tpu_torch.models.rl_mm import RLConfig, richardson_lucy_MM
+    from ics_tpu_torch.models.rl_pam import richardson_lucy_PAM
+    from ics_tpu_torch.models.rl_pd import richardson_lucy_PD
 
     if window is not None:
         top, left, rows, cols = window
@@ -1094,8 +1203,9 @@ def _rl(torch, dev, pic, mk, blind=False, window=None, tau=1e9, iterations=20, *
     torch.cuda.synchronize(dev)
     _zero_counters()
     t0 = time.perf_counter()
-    res = richardson_lucy_MM(image, u0, _gauss_psf(mk), *box, tau, iterations=iterations,
-                             blind=blind, config=RLConfig(**cfg), device=dev)
+    fn = {"mm": richardson_lucy_MM, "pam": richardson_lucy_PAM, "pd": richardson_lucy_PD}[solver]
+    res = fn(image, u0, _gauss_psf(mk), *box, tau, iterations=iterations, blind=blind,
+             config=RLConfig(**cfg) if solver == "mm" else None, device=dev)
     torch.cuda.synchronize(dev)
     return res, _counters(), time.perf_counter() - t0
 
@@ -1319,10 +1429,10 @@ def phase_bench(torch, dev, pic19, cases: dict) -> None:
         _require(np.isfinite(per_outer) and per_outer > 0 and counts[kid] > 0,
                  f"per-outer probe {precision}: finite stats, {kid} launched")
     # where the exact probe's time goes: one more call (a warm and a timed
-    # solve of 2 outers each) under torch.profiler
+    # solve of 2 outers each) under torch.profiler, in the Python outer loop
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the Python loop
         bench._per_outer_probe(iters=2, reps=1, device=dev)
     outers, sums = 4, {}
     for e in prof.events():
@@ -1361,9 +1471,15 @@ def phase_bench(torch, dev, pic19, cases: dict) -> None:
 
 
 # --------------------------------------------------------------- phase 11
+WINDOW19 = (584 - 127, 795 - 127, 255, 255)  # the 1.9 MP case's mask window
+WINDOW24 = (2000 - 256, 3000 - 256, 512, 512)  # 520^2 with mk 9: the op loop
+
+
 def _same_bits(torch, a, b) -> bool:
-    """Two RLResults bitwise: u, u_full, psf, image, stats and the record."""
-    same = all(torch.equal(getattr(a, n), getattr(b, n))
+    """Two RLResults bitwise: u, u_full (None for PAM and PD), psf, image,
+    stats and the record."""
+    same = all(getattr(a, n) is None and getattr(b, n) is None
+               or torch.equal(getattr(a, n), getattr(b, n))
                for n in ("u", "u_full", "psf", "image", "stats"))
     if a.trajectory is None or b.trajectory is None:
         return same and a.trajectory is b.trajectory
@@ -1371,31 +1487,39 @@ def _same_bits(torch, a, b) -> bool:
         np.array_equal(a.trajectory[k], b.trajectory[k]) for k in a.trajectory)
 
 
-def _check_loops(label, outers, same, graph, eager) -> None:
-    """One case of phase 11: ``graph`` and ``eager`` are (launches, wall,
-    the graph loop's log of solves) of the two loops."""
+def _check_loops(label, outers, same, graph, eager, phase=11, reads=1) -> None:
+    """One A/B case: ``graph`` and ``eager`` are (launches, wall, the WHILE
+    loop's log of solves) of the two loops.  Each solve of more than one
+    outer makes ``reads`` host reads (1; ``tv_denoise`` 0), one of one outer
+    none."""
     (gn, gwall, solves), (en, ewall, _) = graph, eager
-    capture = [round(e["capture_ms"], 2) for e in solves if e["capture_ms"] is not None]
-    print(f"phase 11: {label}: {outers} outers in {len(solves)} solves; wall graph "
-          f"{gwall:.3f} s, eager {ewall:.3f} s; host reads graph "
+    ms = lambda key: [round(e[key], 2) for e in solves if e[key] is not None]
+    print(f"phase {phase}: {label}: {outers} outers in {len(solves)} solves; wall WHILE "
+          f"{gwall:.3f} s, eager {ewall:.3f} s; host reads WHILE "
           f"{sum(e['reads'] for e in solves)} ({[e['reads'] for e in solves]} per solve), "
-          f"eager {outers}; capture ms per solve {capture}; launches graph {json.dumps(gn)}, "
-          f"eager {json.dumps(en)}")
-    _require(same, f"phase 11 {label}: graph and eager loops bitwise equal")
-    _require(len(solves) > 0 and all(e["route"] == "graph" and e["reads"] == e["outers"] - 1
+          f"eager {outers if reads else 0}; capture ms per solve {ms('capture_ms')}, build + "
+          f"instantiation ms {ms('instantiate_ms')}; launches WHILE {json.dumps(gn)}, eager "
+          f"{json.dumps(en)}")
+    _require(same, f"phase {phase} {label}: WHILE and eager loops bitwise equal")
+    _require(len(solves) > 0 and all(e["route"] == "while"
+                                     and e["reads"] == (reads if e["outers"] > 1 else 0)
                                      for e in solves)
              and sum(e["outers"] for e in solves) == outers,
-             f"phase 11 {label}: every solve a graph loop, one host read per replay")
-    _require(gn["K7"] == outers and en["K7"] == 0
-             and {k: v for k, v in gn.items() if k != "K7"} == {k: v for k, v in en.items()
-                                                                if k != "K7"},
-             f"phase 11 {label}: the same launches in both loops, K7 once per outer")
+             f"phase {phase} {label}: every solve one WHILE launch, {reads} host read per solve")
+    _require(all(e["k7w"] == (e["outers"] if e["outers"] > 1 else 0) for e in solves),
+             f"phase {phase} {label}: K7w's own count on the card, once per outer of each "
+             f"WHILE launch ({[e['k7w'] for e in solves]})")
+    loop_only = ("K7", "K7w")
+    _require(gn["K7"] == gn["K7w"] == outers and en["K7"] == en["K7w"] == 0
+             and {k: v for k, v in gn.items() if k not in loop_only}
+             == {k: v for k, v in en.items() if k not in loop_only},
+             f"phase {phase} {label}: the same launches in both loops, K7 and K7w once per outer")
 
 
-def _ab_solve(torch, dev, label, pic, mk, **kw) -> None:
-    """``_rl`` in the graph loop (untimed: the kernels' and cuFFT's first
+def _ab_solve(torch, dev, label, pic, mk, phase=11, **kw) -> None:
+    """``_rl`` in the WHILE loop (untimed: the kernels' and cuFFT's first
     calls at these shapes), inside ``rl_mm._eager_outer_loop()``, then in
-    the graph loop again; the three bitwise equal."""
+    the WHILE loop again; the three bitwise equal."""
     from ics_tpu_torch.models import rl_mm
 
     runs = []
@@ -1405,23 +1529,26 @@ def _ab_solve(torch, dev, label, pic, mk, **kw) -> None:
             res, counts, wall = _rl(torch, dev, pic, mk, **kw)
         runs.append((res, (counts, wall, list(rl_mm.loop_log))))
     (first, _), (want, eager), (got, graph) = runs
-    _require(_finite(torch, got), f"phase 11 {label}: u finite")
+    _require(_finite(torch, got), f"phase {phase} {label}: u finite")
     _check_loops(f"{label} (converged={got.converged})", got.iterations,
-                 _same_bits(torch, got, want) and _same_bits(torch, got, first), graph, eager)
+                 _same_bits(torch, got, want) and _same_bits(torch, got, first), graph, eager,
+                 phase)
 
 
-def _ab_deblur(torch, dev, label, pic, kw, profiled: bool) -> None:
-    """``deblur_module`` in the graph loop, then in the Python loop: the
+def _ab_deblur(torch, dev, label, pic, kw, profiled: bool, phase=11) -> None:
+    """``deblur_module`` in the WHILE loop, then in the Python loop: the
     uint16 outputs and every level's result bitwise, walls, peak memory,
-    host reads and capture time per level; with ``profiled``, each loop once
-    more under torch.profiler for its busy share (phase 5 profiles 24 MP)."""
+    host reads, capture and instantiation time per level; with
+    ``profiled``, the Python loop once more under torch.profiler: its busy
+    share, and its device time over the WHILE loop's wall (phase 5
+    profiles 24 MP)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ics_tpu_torch import deblur_module
     from ics_tpu_torch.models import rl_mm
 
     runs = []
-    # phases 4 and 5 ran these cases in the graph loop before: both loops
+    # phases 4 and 5 ran these cases in the WHILE loop before: both loops
     # find the kernels, plans and allocator warm
     for eager in (False, True):
         stats = []
@@ -1440,36 +1567,36 @@ def _ab_deblur(torch, dev, label, pic, kw, profiled: bool) -> None:
     (out, stats, graph, peak), (out_e, stats_e, eager, peak_e) = runs
     same = np.array_equal(out, out_e) and len(stats) == len(stats_e) and all(
         _same_bits(torch, a["result"], b["result"]) for a, b in zip(stats, stats_e))
-    print(f"phase 11: {label}: peak device memory above the run's start, graph {peak:.3f} GiB, "
-          f"eager {peak_e:.3f} GiB")
-    _check_loops(label, sum(s["result"].iterations for s in stats), same, graph, eager)
+    print(f"phase {phase}: {label}: peak device memory above the run's start, WHILE "
+          f"{peak:.3f} GiB, eager {peak_e:.3f} GiB")
+    _check_loops(label, sum(s["result"].iterations for s in stats), same, graph, eager, phase)
     del out, out_e, stats, stats_e, runs
-    for eager in (False, True) if profiled else ():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
-                contextlib.redirect_stdout(io.StringIO()), \
-                rl_mm._eager_outer_loop() if eager else contextlib.nullcontext():
+    if profiled:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                contextlib.redirect_stdout(io.StringIO()):  # the Python loop
             t0 = time.perf_counter()
             deblur_module(pic, "smoke", None, device=dev, **kw)
             wall = time.perf_counter() - t0
         busy = sum(e.time_range.elapsed_us() for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
-        print(f"phase 11: {label} {'eager' if eager else 'graph'} loop profiled: wall "
-              f"{wall:.3f} s, device busy {busy:.3f} s, busy share {busy / wall:.3f}")
+        print(f"phase {phase}: {label} eager loop profiled: wall {wall:.3f} s, device busy "
+              f"{busy:.3f} s, busy share {busy / wall:.3f}; derived: that device time over the "
+              f"WHILE loop's wall above {busy / graph[1]:.3f} (not a trace of the WHILE run: no "
+              "WHILE launch runs under the profiler, profile_run)")
 
 
 def phase_outer_loop(torch, dev, pic19, pic24) -> None:
-    """Phase 11: every solve of this port's main path runs its outers as
-    CUDA-graph replays with the stop decided on the card (K7); here each
-    case runs again in the Python outer loop (``rl_mm._eager_outer_loop()``)
-    and must give the same bits, outers and launches (K7 aside), with one
-    host read per replay.  The counters are zeroed just before each run."""
+    """Phase 11: every solve of this port's main path runs its outers after
+    the first as one WHILE-graph launch with the stop decided on the card
+    (K7, K7w); here each case runs again in the Python outer loop
+    (``rl_mm._eager_outer_loop()``) and must give the same bits, outers and
+    launches (K7 and K7w aside), with one host read per solve.  The
+    counters are zeroed just before each run."""
     t_phase = time.perf_counter()
-    window19 = (584 - 127, 795 - 127, 255, 255)  # the 1.9 MP case's mask window
-    window24 = (2000 - 256, 3000 - 256, 512, 512)  # 520^2 with mk 9: the op loop
     blind = dict(blind=True, tau=0.0, iterations=200)
-    _ab_solve(torch, dev, "1.9MP blind 261^2 window, K2", pic19, 7, window=window19, **blind)
+    _ab_solve(torch, dev, "1.9MP blind 261^2 window, K2", pic19, 7, window=WINDOW19, **blind)
     _ab_solve(torch, dev, "24MP blind 520^2 window mk 9, op loop and K3", pic24, 9,
-              window=window24, **blind)
+              window=WINDOW24, **blind)
     _ab_solve(torch, dev, "24MP non-blind frame, 20 outers", pic24, 9)
     for label, mk, cfg in [("high", 9, dict(conv_precision="high")),
                            ("mixed", 7, dict(dtype="mixed")),
@@ -1477,13 +1604,62 @@ def phase_outer_loop(torch, dev, pic19, pic24) -> None:
         _ab_solve(torch, dev, f"1.9MP non-blind frame {label}, 20 outers", pic19, mk, **cfg)
     _ab_solve(torch, dev, "1.9MP non-blind frame, early_stop 1e-2 patience 2", pic19, 7,
               iterations=200, early_stop=1e-2, early_stop_patience=2)
-    _ab_solve(torch, dev, "1.9MP blind window, record_metrics", pic19, 7, window=window19,
+    _ab_solve(torch, dev, "1.9MP blind window, record_metrics", pic19, 7, window=WINDOW19,
               record_metrics=True, **blind)
     _ab_deblur(torch, dev, "deblur_module 1.9MP", pic19, bench.KW19, profiled=True)
     _ab_deblur(torch, dev, "deblur_module 24MP exact", pic24, bench.KW24, profiled=False)
     seconds = time.perf_counter() - t_phase
     print(f"phase 11: {seconds:.1f} s")
     _require(seconds <= 60.0, "phase 11 takes at most 60 s")
+
+
+# --------------------------------------------------------------- phase 12
+def _ab_tv_denoise(torch, dev, pic24) -> None:
+    """``tv_denoise`` (the CLI's defaults: weight 0.1, 50 iterations) on the
+    24 MP frame in the WHILE loop (untimed), the Python loop and the WHILE
+    loop again: bitwise, K7 and K7w once per iteration, no host read."""
+    from ics_tpu_torch.models import rl_mm
+    from ics_tpu_torch.models.tv_denoise import tv_denoise
+
+    image = torch.from_numpy(pic24.astype(np.float32) / 255.0).to(dev)
+    runs = []
+    for eager in (False, True, False):
+        rl_mm.loop_log.clear()
+        torch.cuda.synchronize(dev)
+        _zero_counters()
+        with rl_mm._eager_outer_loop() if eager else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            out = tv_denoise(image, weight=0.1, iterations=50, device=dev)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        runs.append((out, (_counters(), wall, list(rl_mm.loop_log))))
+    (first, _), (want, eager), (got, graph) = runs
+    _require(bool(torch.isfinite(got).all()) and got.shape == image.shape,
+             "phase 12 tv_denoise 24MP: finite, of the frame's shape")
+    _check_loops("tv_denoise 24MP, 50 iterations", 50,
+                 torch.equal(got, want) and torch.equal(got, first), graph, eager, 12, reads=0)
+
+
+def phase_solver_loops(torch, dev, pic19, pic24) -> None:
+    """Phase 12: PAM and PD (``_solve_outers``) and ``tv_denoise`` on the
+    same WHILE loop, each against its Python loop as in phase 11: PAM and PD
+    on the 1.9 MP case's blind mask window and its non-blind frame (20
+    outers), ``deblur_module`` at 1.9 MP with each, the 24 MP PD frame at 20
+    fixed outers, and ``tv_denoise`` on the 24 MP frame."""
+    t_phase = time.perf_counter()
+    for solver in ("pam", "pd"):
+        _ab_solve(torch, dev, f"{solver} 1.9MP blind 261^2 window", pic19, 7, phase=12,
+                  window=WINDOW19, blind=True, tau=0.0, iterations=200, solver=solver)
+        _ab_solve(torch, dev, f"{solver} 1.9MP non-blind frame, 20 outers", pic19, 7, phase=12,
+                  solver=solver)
+        _ab_deblur(torch, dev, f"deblur_module 1.9MP solver={solver}", pic19,
+                   {**bench.KW19, "solver": solver}, profiled=False, phase=12)
+    _ab_solve(torch, dev, "pd 24MP non-blind frame, 20 outers", pic24, 9, phase=12,
+              solver="pd")
+    _ab_tv_denoise(torch, dev, pic24)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 12: {seconds:.1f} s")
+    _require(seconds <= 90.0, "phase 12 takes at most 90 s")
 
 
 def compare_deblur_batch(other: str) -> int:
@@ -1541,10 +1717,9 @@ def _card() -> str:
 
 
 def compare_loop_profiles() -> int:
-    """``--outer-loop-profiles``: ``profile_run`` of the 24 MP exact, 'high'
-    and 'mixed' cases in the graph outer loop and in the Python one
-    (``rl_mm._eager_outer_loop()``), in turns graph, eager, eager, graph
-    over the modes, after one unprofiled run of each mode."""
+    """``--outer-loop-profiles``: ``profile_run`` of the 24 MP exact, 'high',
+    'mixed', 'pam' and 'pd' cases (the WHILE loop's wall, the Python loop's
+    profile), after one unprofiled run of each mode."""
     import torch
 
     from ics_tpu_torch._device import exact_f32
@@ -1553,13 +1728,122 @@ def compare_loop_profiles() -> int:
     dev = torch.device("cuda", 0)
     print(f"card: {_card()}, torch {torch.__version__}")
     pic24 = make_scene(4000, 6000, *bench.SCENES[(4000, 6000)])[1]
-    modes = [dict(precision=p) for p in ("exact", "high", "mixed")]
+    modes = [*(dict(precision=p) for p in ("exact", "high", "mixed")),
+             dict(solver="pam"), dict(solver="pd")]
     for extra in modes:
         _deblur(torch, pic24, "cuda", **{**bench.KW24, **extra})
-    for i, extra in enumerate(modes):
-        for eager in (False, True) if i % 2 == 0 else (True, False):
-            profile_run(torch, pic24, bench.KW24, extra, eager=eager)
+    for extra in modes:
+        profile_run(torch, pic24, bench.KW24, extra)
     torch.cuda.synchronize(dev)
+    return 0
+
+
+def capture_memory() -> int:
+    """``--capture-memory``: three runs of ``deblur_module`` in each case
+    (1.9 MP; 24 MP exact, 'pam' and 'pd'), each with its wall, capture and
+    instantiation milliseconds per solve, peak allocated and reserved
+    memory.  Every capture shares one pool and one stream per device
+    (models/rl_mm.py::_capture_pool), so a case's third run reserves no
+    more memory than its second; after the third, ``_release_capture_pool``
+    must hand back memory that ``torch.cuda.empty_cache`` alone keeps."""
+    import torch
+
+    from ics_tpu_torch import deblur_module
+    from ics_tpu_torch._device import exact_f32
+    from ics_tpu_torch.models import rl_mm
+
+    exact_f32()
+    dev = torch.device("cuda", 0)
+    print(f"card: {_card()}, torch {torch.__version__}")
+    pic19 = make_scene(1367, 1394, *bench.SCENES[(1367, 1394)])[1]
+    pic24 = make_scene(4000, 6000, *bench.SCENES[(4000, 6000)])[1]
+    for label, pic, kw in (("1.9MP", pic19, bench.KW19), ("24MP exact", pic24, bench.KW24),
+                           ("24MP pam", pic24, {**bench.KW24, "solver": "pam"}),
+                           ("24MP pd", pic24, {**bench.KW24, "solver": "pd"})):
+        reserved = []
+        for run in range(3):
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            rl_mm.loop_log.clear()
+            with contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                deblur_module(pic, "smoke", None, device=dev, **kw)
+                wall = time.perf_counter() - t0
+            reserved.append(torch.cuda.memory_reserved(dev) / 2**30)
+            log = list(rl_mm.loop_log)
+            print(f"{label} run {run + 1}: wall {wall:.3f} s, capture ms "
+                  f"{[round(e['capture_ms'], 2) for e in log]}, build + instantiation ms "
+                  f"{[round(e['instantiate_ms'], 2) for e in log]}, peak allocated "
+                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, reserved "
+                  f"{reserved[-1]:.3f} GiB")
+        _require(reserved[2] <= reserved[1], f"{label}: the third run reserves no more memory "
+                 "than the second")
+        torch.cuda.empty_cache()
+        emptied = torch.cuda.memory_reserved(dev) / 2**30
+        rl_mm._release_capture_pool(dev)
+        released = torch.cuda.memory_reserved(dev) / 2**30
+        print(f"{label}: reserved {reserved[2]:.3f} GiB, {emptied:.3f} GiB after "
+              f"torch.cuda.empty_cache, {released:.3f} GiB after _release_capture_pool")
+        _require(released < emptied, f"{label}: releasing the capture pool hands back memory "
+                 "that empty_cache cannot")
+    return 0
+
+
+def profiled_while(profiled: bool, reps: int = 3) -> int:
+    """``--profiled-while on|off``: the sequence before fault E (ROADMAP.md
+    section 3), with every WHILE launch under torch.profiler (``on``, CPU
+    and CUDA activity) or none (``off``): ``reps`` times the 24 MP exact and
+    'pd' ``deblur_module`` runs, then phase 7's burst of four 24 MP frames
+    through ``batched_deconvolve`` 'map', all in the WHILE loop.  Each step
+    synchronizes and prints as it ends, so that a fault names the step that
+    ran last; the lanes must match from rep to rep bitwise.  Solves under
+    a profiler take the Python loop (models/rl_mm.py::_eager_loop): here
+    they are held to the WHILE loop, as before that rule."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ics_tpu_torch import deblur_module
+    from ics_tpu_torch._device import exact_f32
+    from ics_tpu_torch.cli import batch_inputs
+    from ics_tpu_torch.models import rl_mm
+    from ics_tpu_torch.parallel import batched_deconvolve
+
+    exact_f32()
+    dev = torch.device("cuda", 0)
+    print(f"card: {_card()}, torch {torch.__version__}, profiled: {profiled}", flush=True)
+    pic24 = make_scene(4000, 6000, *bench.SCENES[(4000, 6000)])[1]
+    frames = np.stack([make_scene(4000, 6000, 9, seed=i)[1].astype(np.uint16) * 257
+                       for i in range(4)])
+    imgs, us, psfs, window = batch_inputs(frames, _gauss_psf(9), None, 511)
+    kw = dict(tau=0.01, iterations=200, step_factor=1e-3, lambd=10000.0, blind=False)
+    steps = [("24MP exact", lambda: deblur_module(pic24, "smoke", None, device=dev,
+                                                  **bench.KW24)),
+             ("24MP pd", lambda: deblur_module(pic24, "smoke", None, device=dev,
+                                               **{**bench.KW24, "solver": "pd"})),
+             ("burst 4x24MP map", lambda: batched_deconvolve(imgs, us, psfs, *window,
+                                                             schedule="map", device=dev,
+                                                             **kw)[0])]
+    lanes = None
+    rl_mm._eager_loop = lambda: rl_mm._EAGER_LOOP
+    for rep in range(reps):
+        for label, run in steps:
+            rl_mm.loop_log.clear()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+                    if profiled else contextlib.nullcontext(), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                out = run()
+                torch.cuda.synchronize(dev)
+            log = list(rl_mm.loop_log)
+            _require(all(e["route"] == "while" for e in log), f"{label}: the WHILE loop")
+            print(f"rep {rep + 1} {label}: {time.perf_counter() - t0:.3f} s, {len(log)} WHILE "
+                  f"solves, {sum(e['outers'] for e in log)} outers", flush=True)
+            if label.startswith("burst"):
+                if lanes is not None:
+                    _require(torch.equal(out, lanes), f"rep {rep + 1} {label}: the lanes "
+                             "bitwise the first rep's")
+                lanes = out
+    print(f"profiled={profiled}: {reps} reps, no fault")
     return 0
 
 
@@ -1574,6 +1858,10 @@ def main() -> int:
         return compare_deblur_batch(sys.argv[2])
     if sys.argv[1:2] == ["--outer-loop-profiles"]:
         return compare_loop_profiles()
+    if sys.argv[1:2] == ["--capture-memory"]:
+        return capture_memory()
+    if sys.argv[1:2] == ["--profiled-while"]:
+        return profiled_while(sys.argv[2] == "on")
     t_smoke = time.perf_counter()
     from ics_tpu_torch import _build
     from ics_tpu_torch._device import exact_f32
@@ -1590,13 +1878,14 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, nvcc: {nvcc}, "
           f"driver {driver}")
-    # the solver replays one outer per graph without them (models/rl_mm.py)
+    # the WHILE graph is built in C around torch's own capture (models/rl_mm.py)
     print("CUDA graph conditional nodes (CUDAGraph.begin_capture_to_if_node): "
           f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}")
     t0 = time.perf_counter()
     _build.load_library()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
+    probe_while_node(torch, dev)
     from ics_tpu_torch.runtime import _lib as runtime_lib
 
     t0 = time.perf_counter()
@@ -1607,9 +1896,15 @@ def main() -> int:
           f"{lib._name if lib is not None else 'not built'}")
 
     torch.manual_seed(0)
+    t0 = time.perf_counter()
     rows = phase_kernels(dev)
+    print(f"phase 2: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     launches, pic19, outs19, pic24, exact24, cases = phase_pipelines(torch, dev)
+    print(f"phases 3-5: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     launches.update(phase_cli(pic19, outs19, pic24))
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s")
     import tempfile
 
     with tempfile.TemporaryDirectory() as burst_dir:  # phase 7's TIFFs, read again in 8
@@ -1618,6 +1913,7 @@ def main() -> int:
     launches.update(phase_conv_methods(torch, dev, pic19, pic24))
     phase_bench(torch, dev, pic19, cases)
     phase_outer_loop(torch, dev, pic19, pic24)
+    phase_solver_loops(torch, dev, pic19, pic24)
 
     sources = {
         "K1": ("ics_tpu_torch/csrc/conv2d.cu", "ics_tpu/ops/pallas_conv.py:39"),
@@ -1631,6 +1927,9 @@ def main() -> int:
         "K6": ("ics_tpu_torch/csrc/bilateral.cu", "ics_tpu/ops/pallas_bilateral.py:58"),
         # no TPU kernel: the stop of the solver's lax.while_loop
         "K7": ("ics_tpu_torch/csrc/outer_loop.cu", "ics_tpu/models/rl_mm.py:543"),
+        # no TPU kernel: the lax.while_loop node, which K7w drives
+        "K7w": ("ics_tpu_torch/csrc/graph_while.cu",
+                "none: the lax.while_loop node, ics_tpu/models/rl_mm.py:627"),
     }
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -73,6 +73,14 @@ _SIGNATURES = {
     # m_r_new, mr, ints, go, iterations, blind, tau, early, keep, patience,
     # use_stopping, stream (ops/cuda_outer.py)
     "ics_outer_stop": [_P, _P, _P, _P, _I, _I, _F, _I, _F, _I, _I, _P],
+    # body (cudaGraph_t), go, runs, graph (out), exec (out) (ops/cuda_outer.py)
+    "ics_while_build": [_P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P)],
+    # exec, stream
+    "ics_while_launch": [_P, _P],
+    # graph, exec
+    "ics_while_free": [_P, _P],
+    # driver (out), runtime (out)
+    "ics_cuda_versions": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
 }
 
 _lock = threading.Lock()

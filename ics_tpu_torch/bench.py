@@ -42,6 +42,7 @@ import time
 import numpy as np
 
 from ics_tpu_torch._device import resolve_device, to_f32
+from ics_tpu_torch.models import rl_mm
 from ics_tpu_torch.models.pipeline import deblur_module
 from ics_tpu_torch.models.rl_mm import RLConfig, richardson_lucy_MM
 from ics_tpu_torch.utils import selftest
@@ -159,6 +160,7 @@ def _run_case(pic, kwargs, label, reps=1, device="cuda"):
         print(f"[{label}] {s['case']} scale={s['scale']:.3f} k={s['k']}: "
               f"{r.iterations} outer, converged={r.converged}", file=sys.stderr)
     del out, stats
+    rl_mm._release_capture_pool(device)  # the blocks of the case's captured bodies
     selftest._free_device(device)
     return elapsed, iters, compute_s
 

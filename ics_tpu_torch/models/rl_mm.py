@@ -9,13 +9,16 @@ The JAX package runs both loops as one on-device program
 Here a one-image, unsharded solve keeps its outer state on its device, in
 tensors updated in place, and decides its stop there (K7,
 ops/cuda_outer.py).  On CUDA it runs outer 1 eagerly, captures one outer as
-a CUDA graph and replays it once per outer, with one host read of the
-state after each replay: PyTorch 2.11 gives Python no conditional graph
-node, so the host decides whether another outer runs, where
-``lax.while_loop`` tests ``outer_cond`` (:598-600); checking less often
-would change the outer count.  On the CPU the same body runs eagerly.  A batch, a sharded
-solve, and any solve inside ``_eager_outer_loop()`` take the Python loop
-that reads the stop flags once per outer.
+a CUDA graph and runs every later outer in one launch of a graph whose
+WHILE node repeats that body while K7's ``go`` holds (K7w,
+csrc/graph_while.cu), then reads the state once, as ``lax.while_loop``
+tests ``outer_cond`` (:598-600) on the device.  On the CPU the same body
+runs eagerly, with one read of the state per outer.  The PAM and PD
+solvers and ``tv_denoise`` run their outers through the same loop
+(``_state_loop``).  A batch, a sharded solve, any solve inside
+``_eager_outer_loop()`` and any solve while torch's profiler runs
+(``_eager_loop``) take the Python loop that reads the stop flags once per
+outer.
 
 Inner loop, per outer iteration, as ``RLConfig.inner_loop`` routes it
 (``inner_loop_route``): the one-launch kernel K2 (ops/cuda_solver.py), or
@@ -59,10 +62,21 @@ _INNER_LOOPS = ("auto", "xla", "pallas", "pallas_unrolled")
 # conv_precision -> ops/conv.py's precision (ics_tpu/models/rl_mm.py:313-317)
 _CONV_PRECISIONS = {"exact": "exact", "high": "bf16x3", "fast": "fast"}
 _EAGER_LOOP = False  # set by _eager_outer_loop()
-# one entry per device-state solve, newest last: its route ('graph' on CUDA,
-# 'host' on the CPU), outers run, host reads of the stop state, and the
-# capture's host milliseconds (instantiation included; None without one)
+# one entry per device-state solve, newest last: its route ('while' on CUDA,
+# 'host' on the CPU), outers run, host reads of the stop state, K7w's runs
+# as K7w counted them on the card (None on the CPU, and until a fixed-count
+# loop's count is read: _read_launches), and the host milliseconds of the
+# body's capture and of the WHILE graph's build and instantiation (None
+# without a graph)
 loop_log = collections.deque(maxlen=64)
+# the fixed-count WHILE launches whose counts the host has not read yet:
+# (loop_log entry, launches per captured body, the state's counts as copied
+# to pinned host memory behind the launch, the event after that copy)
+_UNREAD = []
+# per CUDA device index: the memory pool and the stream of every body's
+# capture, the event after the last WHILE launch, and the graph that keeps
+# the pool alive (_capture_pool)
+_POOLS = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -372,12 +386,17 @@ def _solve(
     lane = (lambda x, i: x) if lanes == 1 else (lambda x, i: x[chans * i : chans * (i + 1)])
     error = torch.zeros_like(image)
     kw = dict(step_factor=step_factor, lambd=lambd, blind=blind, correlation=correlation)
-    if lanes == 1 and shard is None and not _EAGER_LOOP:
-        (u, psf, error, image), its, stops, m_r, hist = _state_loop(
-            inner, kw, _Outer(u, psf, error, image, iterations, record), window=window,
-            weights=weights, pad=pad, use_stopping=use_stopping,
-            stop_kw=dict(iterations=iterations, blind=blind, tau=tau, early_stop=early_stop,
-                         patience=early_stop_patience, use_stopping=use_stopping))
+    if lanes == 1 and shard is None and not _eager_loop():
+        st = _Outer(iterations, record, u=u, psf=psf, error=error, image=image)
+
+        def outer(u, psf, image, **_):
+            return dict(zip(("u", "psf", "error", "image"), inner(u, image, psf, 1, **kw)))
+
+        hist = _state_loop(outer, st, window=window, weights=weights, pad=pad,
+                           iterations=iterations, blind=blind, tau=tau, early_stop=early_stop,
+                           patience=early_stop_patience, use_stopping=use_stopping)
+        u, psf, error, image = st.u, st.psf, st.error, st.image
+        its, stops, m_r = [st.ints[0]], [st.ints[2]], [st.mr[0]]
     else:  # the Python loop: state rebound each outer, one host read of the stop flags
         zero = torch.zeros((), dtype=f32, device=dev)
         m_r = [zero] * lanes
@@ -444,57 +463,98 @@ def _solve(
     return u_out, _hwc(u, batch), _hwc(psf, batch), _hwc(image, batch), stats, hist
 
 
-def _state_loop(inner, kw, st, *, window, weights, pad, use_stopping, stop_kw):
+def _state_loop(outer, st, *, window=None, weights=None, pad=0, read=True, **stop_kw):
     """A one-image solve's outers on the state ``st`` (``_Outer``): the body
-    is ics_tpu/models/rl_mm.py's ``outer_body`` (:500-596), the inner loop,
-    M_r, the record at index ``it``, K7's stop, then the new state copied
-    into the tensors that the next outer (or replay) reads.  CUDA runs it
-    through ``_graph_loop``, the CPU through ``_host_loop``.  Returns the
-    state (u, psf, error, image), the outer count, stop and M_r as tensors,
-    and the record."""
+    is ics_tpu/models/rl_mm.py's ``outer_body`` (:500-596), PAM's and PD's
+    (rl_pam.py:135-169, rl_pd.py:247-290): ``outer`` on the state's tensors
+    (a dict of the next ones), M_r of its 'error' over ``window``, the
+    record at index ``it``, K7's stop (``stop_kw``: ops/cuda_outer.py::
+    outer_stop), then the new state copied into the tensors that the next
+    outer reads.  CUDA runs it through ``_while_loop`` (``read``: whether
+    the host reads the outer count; a fixed count needs no read), the CPU
+    through ``_host_loop``.  Returns the record."""
 
     def body():
-        outs = inner(st.u, st.image, st.psf, 1, **kw)  # u, psf, error, image
-        m_r_new = (whiteness_metric(outs[2], window=window, weights=weights)
-                   if use_stopping else st.mr[0])
+        new = outer(**{name: getattr(st, name) for name in st.names})
+        m_r_new = (whiteness_metric(new["error"], window=window, weights=weights)
+                   if stop_kw["use_stopping"] else st.mr[0])
         if st.hist is not None:
             at = st.ints[:1].long()
-            for key, value in (("M_r", m_r_new), ("Hu", _hu(outs[2], window)),
-                               ("varu", _varu(outs[0], window, pad))):
+            for key, value in (("M_r", m_r_new), ("Hu", _hu(new["error"], window)),
+                               ("varu", _varu(new["u"], window, pad))):
                 st.hist[key].index_copy_(0, at, value.reshape(1))
         cuda_outer.outer_stop(m_r_new, st.mr, st.ints, st.go, **stop_kw)
-        st.store(*outs)
+        st.store(**new)
 
-    drive = _graph_loop if st.u.device.type == "cuda" else _host_loop
-    outers = drive(body, st, stop_kw["iterations"])
-    hist = ({k: v[:outers] for k, v in st.hist.items()} if st.hist is not None
+    if st.go.device.type == "cuda":
+        outers = _while_loop(body, st, stop_kw["iterations"], read)
+    else:
+        outers = _host_loop(body, st, stop_kw["iterations"])
+    return ({k: v[:outers] for k, v in st.hist.items()} if st.hist is not None
             else {"M_r": [], "Hu": [], "varu": []})
-    return (st.u, st.psf, st.error, st.image), [st.ints[0]], [st.ints[2]], [st.mr[0]], hist
 
 
 class _Outer:
     """A one-image solve's outer state on its device, at fixed addresses: the
-    planar iterate, PSF, residual and observed image, the stop state of K7
-    (``mr``, ``ints``, ``go``: ops/cuda_outer.py) and, with ``record``, the
-    (iterations,) buffers of the per-outer M_r, Hu and varu."""
+    named tensors of its body (the MM solver's u, psf, error and image,
+    PAM's, PD's, ``tv_denoise``'s), each an attribute, the stop state of K7
+    (``mr``, ``ints``, ``go``: ops/cuda_outer.py), K7w's count of its runs
+    (``k7w``, one int32 after ``ints`` in ``counts``, so that one copy reads
+    both) and, with ``record``, the (iterations,) buffers of the per-outer
+    M_r, Hu and varu."""
 
-    def __init__(self, u, psf, error, image, iterations, record):
-        self.u, self.psf, self.error, self.image = u, psf, error, image
-        self.mr, self.ints, self.go = cuda_outer.initial_state(u.device, iterations)
-        self.hist = {k: torch.zeros(iterations, dtype=torch.float32, device=u.device)
+    def __init__(self, iterations, record=False, **tensors):
+        self.names = tuple(tensors)
+        for name, t in tensors.items():
+            setattr(self, name, t)
+        dev = next(iter(tensors.values())).device
+        self.mr, ints, self.go = cuda_outer.initial_state(dev, iterations)
+        self.counts = torch.cat([ints, ints.new_zeros(1)])
+        self.ints, self.k7w = self.counts[:4], self.counts[4:]
+        self.hist = {k: torch.zeros(iterations, dtype=torch.float32, device=dev)
                      for k in ("M_r", "Hu", "varu")} if record else None
 
-    def store(self, u, psf, error, image):
+    def store(self, **new):
         """Copy an outer's results into the state (a result that is already
         the state's tensor, as K2's in-place ``u``, stays)."""
-        for name, new in (("u", u), ("psf", psf), ("error", error), ("image", image)):
+        for name, t in new.items():
             old = getattr(self, name)
-            if new is old:
+            if t is old:
                 continue
-            if new.dtype != old.dtype or new.shape != old.shape:
-                raise RuntimeError(f"the outer body's {name} is {new.dtype} {tuple(new.shape)}, "
+            if t.dtype != old.dtype or t.shape != old.shape:
+                raise RuntimeError(f"the outer body's {name} is {t.dtype} {tuple(t.shape)}, "
                                    f"its state {old.dtype} {tuple(old.shape)}")
-            old.copy_(new)
+            old.copy_(t)
+
+
+def _solve_outers(outer, state: dict, *, iterations, window=None, weights=None, blind=False,
+                  tau=0.0, use_stopping=True, read=True):
+    """PAM's, PD's and ``tv_denoise``'s outer loop around ``outer`` (the
+    state's tensors to the next ones, 'error' among them when
+    ``use_stopping``), stopped by the residual whiteness with no plateau
+    (``whiteness_stop``, as JAX's ``outer_body``) or after ``iterations``:
+    the device-state loop (``_state_loop``; ``read`` False: no host read
+    of a fixed count), or where ``_eager_loop()`` holds the Python loop
+    with one host read per outer.  The state's tensors must not share
+    storage.  Returns (state, outers, stop, M_r); the last three are
+    tensors on the device or host values."""
+    if not _eager_loop():
+        st = _Outer(iterations, **state)
+        _state_loop(outer, st, window=window, weights=weights, read=read, iterations=iterations,
+                    blind=blind, tau=tau, use_stopping=use_stopping)
+        return {name: getattr(st, name) for name in st.names}, st.ints[0], st.ints[2], st.mr[0]
+    m_r = m_r_prev = torch.zeros((), dtype=torch.float32,
+                                 device=next(iter(state.values())).device)
+    it, stop = 0, False
+    while it < iterations and not stop:
+        state = outer(**state)
+        if use_stopping:
+            m_r, m_r_prev, hit = whiteness_stop(state["error"], it, m_r, m_r_prev,
+                                                window=window, weights=weights, blind=blind,
+                                                tau=tau)
+            stop = it > 1 and bool(hit)  # the one host read of this outer
+        it += 1
+    return state, it, stop, m_r
 
 
 def _host_loop(body, st, iterations):
@@ -504,7 +564,8 @@ def _host_loop(body, st, iterations):
         body()
         outers, _, _, go = st.ints.tolist()
         reads += 1
-    loop_log.append(dict(route="host", outers=outers, reads=reads, capture_ms=None))
+    loop_log.append(dict(route="host", outers=outers, reads=reads, k7w=None, capture_ms=None,
+                         instantiate_ms=None))
     return outers
 
 
@@ -515,63 +576,184 @@ def _launch_counters():
 
     return [(cuda_conv, "launches"), (cuda_solver, "launches"), (cuda_correlate, "launches"),
             (cuda_tv, "launches"), (cuda_bilateral, "launches"), (cuda_outer, "launches"),
-            *((cuda_conv_mma, f"{v}_launches") for v in ("split", "bf16", "highest", "default"))]
+            *((cuda_conv_mma, f"{v}_launches") for v in ("split", "bf16", "highest", "default")),
+            (cuda_outer, "while_launches")]
 
 
-def _read_launches() -> list[int]:
+def _launch_values() -> list[int]:
     return [getattr(mod, name) for mod, name in _launch_counters()]
 
 
-def _write_launches(values) -> None:
+def _set_launches(values) -> None:
     for (mod, name), value in zip(_launch_counters(), values):
         setattr(mod, name, value)
 
 
-def _count_replays(per_body, outers: int) -> None:
-    """A replay calls no wrapper: add each counter's change over the capture
-    of one body, times the outers that ran."""
-    _write_launches([v + d * outers for v, d in zip(_read_launches(), per_body)])
+def _read_launches() -> list[int]:
+    """Every launch counter, once the WHILE launches not read yet are
+    counted (``_settle_unread``)."""
+    _settle_unread()
+    return _launch_values()
 
 
-def _graph_loop(body, st, iterations):
+def _write_launches(values) -> None:
+    """Set every launch counter, once the WHILE launches not read yet are
+    counted, so that none of them adds to the new values later."""
+    _settle_unread()
+    _set_launches(values)
+
+
+def _count_replays(per_body, bodies: int) -> None:
+    """A WHILE node's bodies call no wrapper: add each counter's change over
+    the capture of one body, times the bodies that K7w counted."""
+    _set_launches([v + d * bodies for v, d in zip(_launch_values(), per_body)])
+
+
+def _settle(entry, per_body, counts) -> None:
+    """Count a WHILE launch from its state as read back (``counts``: K7's
+    ``[it, since_best, stop, go]``, then K7w's runs).  K7 adds one to ``it``
+    in each body and K7w one to its runs before the node and after each
+    body, so each is the outers run, and a fixed-count loop's is the count
+    it was given (``entry['outers']``).  Raises when they differ."""
+    outers, k7w = counts[0], counts[4]
+    if k7w != outers or not (entry["reads"] or outers == entry["outers"]):
+        want = "one K7w run per outer" + ("" if entry["reads"] else f", {entry['outers']} outers")
+        raise RuntimeError(f"the WHILE launch ran {outers} outers by K7's count and {k7w} K7w "
+                           f"runs; want {want}")
+    _count_replays(per_body, k7w - 1)
+    cuda_outer.while_launches += k7w
+    entry.update(outers=outers, k7w=k7w)
+
+
+def _settle_unread(wait=True) -> None:
+    """Count the fixed-count WHILE launches (``tv_denoise``'s) that no solve
+    has read, oldest first, from the copy of each one's counts: waiting for
+    each copy, or without ``wait`` only the copies already done."""
+    while _UNREAD and (wait or _UNREAD[0][3].query()):
+        entry, per_body, host, copied = _UNREAD.pop(0)
+        copied.synchronize()
+        _settle(entry, per_body, host.tolist())
+
+
+def _while_loop(body, st, iterations, read=True):
     """The CUDA loop.  Outer 1 runs eagerly: it makes the cuFFT plans, the
     allocator's blocks and each kernel's first call.  No stop fires before
     outer 3 (K7's test needs ``it`` > 1), so with ``iterations`` > 1 one
     body is captured at once, while the card still runs outer 1, as a CUDA
-    graph in a private memory pool (the wrappers count no launch for it),
-    then replayed once per outer, with one host read of the state after
-    each replay.  A capture or replay that fails raises; the graph and its
-    pool are freed before returning."""
-    if iterations <= 0:
-        loop_log.append(dict(route="graph", outers=0, reads=0, capture_ms=None))
-        return 0
-    body()
-    outers, reads, capture_ms = 1, 0, None
+    graph in the device's capture pool, on its capture stream
+    (``_capture_pool``; the wrappers count no launch for it).
+    The WHILE graph around it (ops/cuda_outer.py::while_build) runs every
+    later outer in one launch on the current stream.  With ``read`` the
+    host then reads the state and K7w's runs in one copy and counts the
+    launch (``_settle``); a fixed-count loop copies them to the host behind
+    the launch, without waiting, and counts it once the copy is done: when
+    the launch counters are read (``_read_launches``), or at a later
+    solve's start.  A capture, build or launch that fails raises; the
+    graphs are freed before returning, the pool stays for the next."""
+    _settle_unread(wait=False)
+    entry = dict(route="while", outers=0, reads=0, k7w=0, capture_ms=None, instantiate_ms=None)
+    if iterations > 0:
+        body()
+        entry["outers"] = 1
     if iterations > 1:
-        graph = torch.cuda.CUDAGraph()
-        before = _read_launches()
+        dev = st.go.device
+        pool, stream, done = _capture_pool(dev)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = _launch_values()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.stream(torch.cuda.Stream(st.u.device)):
-                graph.capture_begin(capture_error_mode="thread_local")
+            with torch.cuda.stream(stream):
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                 body()
                 graph.capture_end()
-            per_body = [a - b for a, b in zip(_read_launches(), before)]
+            per_body = [a - b for a, b in zip(_launch_values(), before)]
         finally:
-            _write_launches(before)
-        capture_ms = (time.perf_counter() - t0) * 1e3
-        go = True
+            _set_launches(before)
+        t1 = time.perf_counter()
         try:
-            while go:
-                graph.replay()
-                now, _, _, go = st.ints.tolist()
-                reads += 1
-                _count_replays(per_body, now - outers)
-                outers = now
+            handles = cuda_outer.while_build(graph.raw_cuda_graph(), st.go, st.k7w)
+            t2 = time.perf_counter()
+            try:
+                current = torch.cuda.current_stream(dev)
+                current.wait_event(done)
+                cuda_outer.while_launch(handles, dev)
+                if read:
+                    counts = st.counts.tolist()  # the one host read
+                else:
+                    host = torch.empty(5, dtype=torch.int32, pin_memory=True)
+                    host.copy_(st.counts, non_blocking=True)
+                    copied = torch.cuda.Event()
+                    copied.record(current)
+                done.record(current)
+            finally:
+                cuda_outer.while_free(*handles)
         finally:
             graph.reset()
-    loop_log.append(dict(route="graph", outers=outers, reads=reads, capture_ms=capture_ms))
-    return outers
+        entry.update(outers=iterations, reads=int(read), k7w=None, capture_ms=(t1 - t0) * 1e3,
+                     instantiate_ms=(t2 - t1) * 1e3)
+        if read:
+            _settle(entry, per_body, counts)
+        else:
+            _UNREAD.append((entry, per_body, host, copied))
+    loop_log.append(entry)
+    return entry["outers"]
+
+
+def _capture_pool(dev):
+    """(pool, stream, done) of every body captured on ``dev``: one memory
+    pool and one side stream per device, the pool kept alive by a
+    one-kernel graph captured into it, and the event recorded after the
+    last WHILE launch.  The caching allocator reuses a freed block only in
+    its own pool and on its own stream, and frees a released pool only
+    when an allocation outside a capture fails; a fresh pool or stream per
+    capture grew the reserved memory by one body's temporaries per solve
+    until a capture ran out of the card's memory.  With both shared, a
+    body's temporaries reuse the blocks of the bodies before it, so each
+    WHILE launch waits for ``done``: the graph before it has finished."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _POOLS:
+        pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev)
+        anchor = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            anchor.capture_begin(pool=pool, capture_error_mode="thread_local")
+            torch.zeros(1, device=dev)
+            anchor.capture_end()
+        _POOLS[key] = (pool, stream, torch.cuda.Event(), anchor)
+    return _POOLS[key][:3]
+
+
+def _release_capture_pool(device=None) -> None:
+    """Drop the capture pool and stream of ``device`` (of every device when
+    None) once its last WHILE launch has finished, and return the unused
+    cached blocks, the pool's among them, to the card
+    (``torch.cuda.empty_cache``).  Until then the pool keeps the largest
+    body's temporaries reserved, where neither ``empty_cache`` nor an
+    allocation that fails can take them back.  For a long-lived process
+    between pieces of work (the bench between its cases, the tests); the
+    next capture makes a new pool.  A CPU device has none."""
+    if device is None:
+        keys = list(_POOLS)
+    else:
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            return
+        keys = [dev.index if dev.index is not None else torch.cuda.current_device()]
+    for key in keys:
+        if key in _POOLS:
+            _, _, done, anchor = _POOLS.pop(key)
+            done.synchronize()
+            anchor.reset()
+    torch.cuda.empty_cache()
+
+
+def _eager_loop() -> bool:
+    """Whether a solve takes the Python outer loop: inside
+    ``_eager_outer_loop()``, and while torch's profiler runs (autograd's
+    or ``torch.profiler``'s): on torch 2.11 a profiled WHILE launch misnames
+    and drops the kernels of the node's bodies, and profiled WHILE solves
+    hit an illegal memory access where the same solves unprofiled did not
+    (ROADMAP.md section 3, fault E)."""
+    return _EAGER_LOOP or torch._C._autograd._profiler_enabled()
 
 
 @contextlib.contextmanager

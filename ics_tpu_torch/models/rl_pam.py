@@ -10,9 +10,12 @@ projected gradient steps:
   k ← Π_Δ[ k − ε_k · u⋆(k∗u − f) ]          (blind only)
 
 with Π_Δ the clamp-and-rescale simplex projection of ``normalize_kernel``.
-Five inner steps run per outer iteration; the outer loop is Python that
-reads the whiteness stop flag on the host once per outer iteration, where
-the JAX ``lax.while_loop`` tests it (as in ``rl_mm.py``).
+Five inner steps run per outer iteration.  The outer loop is the MM
+solver's device-state loop (``rl_mm._solve_outers``): the state (u, the
+PSF, its rotation, the residual) at fixed addresses, the whiteness stop
+decided on the device by K7, and on CUDA every outer after the first in
+one launch of a WHILE graph with one host read, as JAX's
+``lax.while_loop``.
 
 Backends, per inner step, on CUDA tensors (their plain twins on CPU ones):
 the two data-term convolutions go through the convolution dispatch with
@@ -40,7 +43,7 @@ import numpy as np
 import torch
 
 from ics_tpu_torch._device import exact_f32, resolve_device
-from ics_tpu_torch.models.rl_mm import RLResult, _hwc, _planar, final_stats, whiteness_stop
+from ics_tpu_torch.models.rl_mm import RLResult, _hwc, _planar, _solve_outers, final_stats
 from ics_tpu_torch.ops.conv import METHODS, conv_planar
 from ics_tpu_torch.ops.cuda_correlate import psf_gradient_planar
 from ics_tpu_torch.ops.psf import project_planar
@@ -79,13 +82,9 @@ def _solve_pam(image, u, psf, weights, *, top, bottom, left, right, tau, step_fa
     sf = float(np.float32(step_factor))
     sf_mk = float(np.float32(sf) / np.float32(mk))  # the f32 quotient JAX takes
     inv_un, inv_un3 = 1.0 / (u_m * u_n), 1.0 / (u_m * u_n * 3)
-    psf_rot = torch.flip(psf, dims=(1, 2)).contiguous()
-    error = torch.zeros_like(image)
     window = (top, bottom, left, right)
-    m_r = m_r_prev = torch.zeros((), dtype=torch.float32, device=dev)
-    it, stop = 0, False
 
-    while it < iterations and not stop:
+    def outer(u, psf, psf_rot, error):
         for _ in range(_INNER_ITER):
             # data-term gradient kᵀ∗(k∗u − f), full support
             error = conv_planar(u, psf, "valid", method=conv_method) - image
@@ -109,15 +108,16 @@ def _solve_pam(image, u, psf, weights, *, top, bottom, left, right, tau, step_fa
                 )
                 psf = project_planar(psf - dtpsf * gradk, correlation)
                 psf_rot = torch.flip(psf, dims=(1, 2)).contiguous()
-        if use_stopping:
-            m_r, m_r_prev, hit = whiteness_stop(
-                error, it, m_r, m_r_prev, window=window, weights=weights, blind=blind,
-                tau=tau)
-            stop = it > 1 and bool(hit)  # the one host read of this outer
-        it += 1
+        return dict(u=u, psf=psf, psf_rot=psf_rot, error=error)
 
-    stats = final_stats(it, stop, m_r, error, u, window=window, pad=pad)
-    return _hwc(u[:, pad : pad + m, pad : pad + n]), _hwc(psf), stats
+    state = dict(u=u, psf=psf, psf_rot=torch.flip(psf, dims=(1, 2)).contiguous(),
+                 error=torch.zeros_like(image))
+    state, it, stop, m_r = _solve_outers(
+        outer, state, iterations=iterations, window=window, weights=weights, blind=blind,
+        tau=tau, use_stopping=use_stopping)
+    u = state["u"]
+    stats = final_stats(it, stop, m_r, state["error"], u, window=window, pad=pad)
+    return _hwc(u[:, pad : pad + m, pad : pad + n]), _hwc(state["psf"]), stats
 
 
 def richardson_lucy_PAM(

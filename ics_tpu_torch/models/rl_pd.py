@@ -20,8 +20,11 @@ it is a prime length (4003 rows at 24 MP): padding to a fast length would
 change the circular model and the answer.  The blind PSF gradient, the
 correlation of the wrap-padded ``u`` with the circular residual, is K3's
 function ``rot180(corr_valid(u, error))`` and runs on K3 (its plain twin on
-CPU tensors).  The outer loop reads the whiteness stop flag on the host
-once per outer iteration, as in ``rl_mm.py``.
+CPU tensors).  The outer loop is the MM solver's device-state loop
+(``rl_mm._solve_outers``): the state (u, ū, the dual field, the PSF, its
+spectra, the residual) at fixed addresses, the whiteness stop decided on
+the device by K7, and on CUDA every outer after the first in one launch of
+a WHILE graph with one host read, as JAX's ``lax.while_loop``.
 
 State is planar (C, H, W): ``_grad``, ``_div``, ``_edgetaper`` and
 ``_psf_otf`` take planar tensors and transform the last two axes.
@@ -36,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ics_tpu_torch._device import exact_f32, resolve_device
-from ics_tpu_torch.models.rl_mm import RLResult, _hwc, _planar, final_stats, whiteness_stop
+from ics_tpu_torch.models.rl_mm import RLResult, _hwc, _planar, _solve_outers, final_stats
 from ics_tpu_torch.ops.cuda_correlate import psf_gradient_planar
 from ics_tpu_torch.ops.psf import project_planar
 from ics_tpu_torch.ops.reductions import whiteness_weights
@@ -132,15 +135,7 @@ def _solve_pd(image, u0, psf, weights, *, top, bottom, left, right, tau_stop, st
         """Circular-model residual k∗u − f (matches the data term)."""
         return torch.fft.irfft2(otf * torch.fft.rfft2(u), s=(m, n)).float() - image
 
-    kf, den = prox_terms(otf)
-    u = u_bar = u0
-    py = px = torch.zeros_like(u0)
-    error = torch.zeros_like(image)
-    window = (top, bottom, left, right)
-    m_r = m_r_prev = torch.zeros((), dtype=torch.float32, device=dev)
-    it, stop = 0, False
-
-    while it < iterations and not stop:
+    def outer(u, u_bar, py, px, psf, otf, kf, den, error):
         for _ in range(_INNER_ITER):
             # dual ascent on the gradient, projected onto the λ ball
             gy, gx = _grad(u_bar)
@@ -169,15 +164,21 @@ def _solve_pd(image, u0, psf, weights, *, top, bottom, left, right, tau_stop, st
         if not blind:
             # only the post-loop residual is read (whiteness, final Hu)
             error = residual(u, otf)
-        if use_stopping:
-            m_r, m_r_prev, hit = whiteness_stop(
-                error, it, m_r, m_r_prev, window=window, weights=weights, blind=blind,
-                tau=tau_stop)
-            stop = it > 1 and bool(hit)  # the one host read of this outer
-        it += 1
+        return dict(u=u, u_bar=u_bar, py=py, px=px, psf=psf, otf=otf, kf=kf, den=den,
+                    error=error)
 
+    kf, den = prox_terms(otf)
+    # u and ū start equal, as distinct tensors: the device-state loop
+    # updates the state in place, and the inputs stay as they are
+    state = dict(u=u0.clone(), u_bar=u0.clone(), py=torch.zeros_like(u0),
+                 px=torch.zeros_like(u0), psf=psf.clone(), otf=otf, kf=kf, den=den, error=torch.zeros_like(image))
+    state, it, stop, m_r = _solve_outers(
+        outer, state, iterations=iterations, window=(top, bottom, left, right),
+        weights=weights, blind=blind, tau=tau_stop, use_stopping=use_stopping)
     # the inset-window convention of the reference, MM and PAM
-    return u, psf, final_stats(it, stop, m_r, error, u, window=window, pad=p)
+    u = state["u"]
+    return u, state["psf"], final_stats(it, stop, m_r, state["error"], u,
+                                        window=(top, bottom, left, right), pad=p)
 
 
 def richardson_lucy_PD(

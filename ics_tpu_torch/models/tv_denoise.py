@@ -5,7 +5,14 @@
 
 solved in the dual: p_{t+1} = (p + tau grad(div p - f/weight)) /
 (1 + tau |grad(...)|), u = f - weight * div(p).  Elementwise torch on the
-input's device, one Python loop step per iteration; no kernel of its own.
+input's device, no kernel of its own.  JAX runs the iterations as one
+``lax.fori_loop`` (ics_tpu/models/tv_denoise.py:60); here each iteration
+writes the dual field in place, at fixed addresses, and the iterations go
+through the solvers' outer loop (``rl_mm._solve_outers``) with K7 as the
+counter (``use_stopping=False``): on CUDA iteration 1 runs eagerly and the
+rest in one launch of a WHILE graph, with no host read before the result.
+Where ``rl_mm._eager_loop()`` holds (inside ``rl_mm._eager_outer_loop()``, or
+under torch's profiler) a Python loop issues every iteration.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ics_tpu_torch._device import resolve_device, to_f32
+from ics_tpu_torch.models import rl_mm
 
 __all__ = ["tv_denoise"]
 
@@ -41,11 +49,16 @@ def tv_denoise(image, weight: float = 0.1, iterations: int = 50,
     # by its reciprocal, which is not the JAX package's rounding
     w = torch.tensor(float(weight), dtype=torch.float32, device=f.device)
     tau = 0.25  # skimage's working step; Chambolle 2004 proves 1/8
-    py = torch.zeros_like(f)
-    px = torch.zeros_like(f)
-    for _ in range(int(iterations)):
+
+    def step(py, px):
+        """One iteration, in place: the gradient reads both old fields first."""
         gy, gx = _grad(_div(py, px) - f / w)
         denom = 1.0 + tau * torch.sqrt(gy * gy + gx * gx)
-        py = (py + tau * gy) / denom
-        px = (px + tau * gx) / denom
-    return f - w * _div(py, px)
+        torch.div(py + tau * gy, denom, out=py)
+        torch.div(px + tau * gx, denom, out=px)
+        return dict(py=py, px=px)
+
+    state = dict(py=torch.zeros_like(f), px=torch.zeros_like(f))
+    state, _, _, _ = rl_mm._solve_outers(step, state, iterations=int(iterations),
+                                         use_stopping=False, read=False)
+    return f - w * _div(state["py"], state["px"])

@@ -1,5 +1,6 @@
-"""K7: the RL-MM outer loop's stop on the device (csrc/outer_loop.cu) and its
-plain twin.
+"""K7: the solvers' outer-loop stop on the device (csrc/outer_loop.cu) and its
+plain twin; K7w and the WHILE graph that runs a solve's outers after the
+first as one launch (csrc/graph_while.cu).
 
 Counterpart of the stop of ics_tpu/models/rl_mm.py's ``lax.while_loop``
 (:543-575 and ``outer_cond`` :598-600), which the TPU decides inside its
@@ -10,22 +11,34 @@ addresses:
 * ``mr``: float32 (3,), ``[m_r, m_r_prev, m_r_best]``;
 * ``ints``: int32 (4,), ``[it, since_best, stop, go]``: one host read of it
   tells the outer count and whether another outer runs;
-* ``go``: a 0-d bool, the same ``go``, for a graph's conditional node.
+* ``go``: a 0-d bool, the same ``go``, that K7w hands to the WHILE node.
 
 On CPU tensors ``outer_stop`` runs ``outer_stop_plain``; on CUDA tensors it
-launches the kernel or raises.
+launches the kernel or raises.  ``while_build`` wraps a captured outer body
+(``torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph()``) in the graph
+``K7w -> WHILE { body -> K7w }``; ``while_launch`` runs it.  K7w counts its
+own runs in an int32 on the card (``runs``), which the caller reads with the
+state and adds to ``while_launches``.  K7w has no plain twin: on the CPU the
+host loop reads ``go`` itself (models/rl_mm.py).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from ics_tpu_torch import _build
 
-__all__ = ["initial_state", "outer_stop", "outer_stop_plain"]
+__all__ = ["initial_state", "outer_stop", "outer_stop_plain", "while_build", "while_launch",
+           "while_free", "cuda_versions"]
 
 launches = 0  # kernel launches by outer_stop (the twin never counts)
+# K7w launches: a WHILE launch runs K7w once before its node and once after
+# each body, each run adding one to the launch's ``runs`` on the card; the
+# caller adds that count here once it has read it (models/rl_mm.py)
+while_launches = 0
 
 
 def initial_state(device, iterations: int):
@@ -91,3 +104,49 @@ def outer_stop(m_r_new, mr, ints, go, *, iterations, blind, tau, early_stop=0.0,
     )
     _build.check(rc, "ics_outer_stop")
     launches += 1
+
+
+def while_build(body_graph: int, go, runs) -> tuple[int, int]:
+    """The outer graph ``K7w(go) -> WHILE { body -> K7w(go) }`` around the
+    captured ``body_graph`` (a ``cudaGraph_t``), instantiated: returns its
+    (graph, executable) handles for ``while_launch`` and ``while_free``.
+    ``go`` is the state's bool that the body's K7 writes; ``runs`` a
+    one-element int32 on the same device that every run of K7w adds one
+    to.  Raises when a step fails: there is no other route."""
+    if go.device.type != "cuda" or go.dtype != torch.bool or go.dim() != 0:
+        raise ValueError(f"the WHILE graph's go is a 0-d bool on a CUDA device; got {go.dtype} "
+                         f"{tuple(go.shape)} on {go.device}")
+    if runs.device != go.device or runs.dtype != torch.int32 or runs.numel() != 1:
+        raise ValueError(f"K7w's runs is one int32 on go's device; got {runs.dtype} "
+                         f"{tuple(runs.shape)} on {runs.device}")
+    graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
+    rc = _build.load_library().ics_while_build(body_graph, go.data_ptr(), runs.data_ptr(),
+                                               ctypes.byref(graph), ctypes.byref(exe))
+    if rc != 0:
+        raise RuntimeError(f"ics_while_build: CUDA error {rc} building or instantiating the "
+                           "WHILE graph")
+    return graph.value, exe.value
+
+
+def while_launch(handles: tuple[int, int], device) -> None:
+    """One launch of the WHILE graph on the current stream of ``device``."""
+    rc = _build.load_library().ics_while_launch(
+        handles[1], torch.cuda.current_stream(device).cuda_stream)
+    _build.check(rc, "ics_while_launch")
+
+
+def while_free(graph: int, exe: int) -> None:
+    """Destroy the WHILE graph and its executable (one still running is
+    freed when it completes)."""
+    rc = _build.load_library().ics_while_free(graph, exe)
+    if rc != 0:
+        raise RuntimeError(f"ics_while_free: CUDA error {rc}")
+
+
+def cuda_versions() -> tuple[int, int]:
+    """(driver, runtime) CUDA versions as ``cudaDriverGetVersion`` and the
+    kernel library's ``cudaRuntimeGetVersion`` give them (12030 is 12.3)."""
+    driver, runtime = ctypes.c_int(), ctypes.c_int()
+    rc = _build.load_library().ics_cuda_versions(ctypes.byref(driver), ctypes.byref(runtime))
+    _build.check(rc, "ics_cuda_versions")
+    return driver.value, runtime.value

@@ -1,8 +1,8 @@
 """On-card certification and microbenchmarks of the port's CUDA kernels, and
 the blind-restoration batteries (counterpart of ics_tpu/utils/selftest.py).
 
-``certify_kernels`` holds every hand-written kernel (K1-K7) against its
-plain PyTorch twin on the GPU at the shapes of the 24 MP path, then the K2
+``certify_kernels`` holds every hand-written kernel (K1-K7, K7w) against
+its plain PyTorch twin on the GPU at the shapes of the 24 MP path, then the K2
 inner loop against the op loop on one blind solve, then the pipeline's
 pre- and postprocess and cubic resize against the same steps done one
 torch op at a time.  A CUDA kernel cannot run on the CPU, so it raises
@@ -650,6 +650,111 @@ class _Certify:
         self.rows["K7"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
                                max_abs_err=worst, **_bound(4 + 2 * (12 + 16) + 1, 10, "f32"))
 
+    def k7w(self):
+        """K7w's effect: a WHILE graph over a body of K7 (M_r read from a
+        table on the card at index ``it``) runs exactly outers - 1 bodies
+        after the eager first, K7w once per outer, one host read, and leaves
+        the state bitwise as K7's twin stepped on the host; then one outer
+        step of the node (K7 and K7w) timed against the host loop's (K7 and
+        a read of the state), over 1000 outers each."""
+        from ics_tpu_torch.models import rl_mm
+        from ics_tpu_torch.ops import cuda_outer
+
+        torch, worst = self.torch, 0.0
+        for label, seq, kw in [
+            ("blind", [5.0, 4.0, 3.0, 3.5, 2.0], dict(blind=True, tau=0.0)),
+            ("plateau", [1.0, 0.9995, 0.999, 0.9988, 0.9987, 0.9986],
+             dict(blind=False, tau=1e9, early_stop=1e-3, patience=2)),
+            ("cap", [3.0, 2.0, 1.0, 0.5], dict(blind=False, tau=1e-4)),
+            ("no stopping", [1.0, 2.0, 3.0], dict(blind=True, tau=0.0, use_stopping=False)),
+        ]:
+            kw = dict(iterations=len(seq), **kw)
+            table = torch.tensor(seq, dtype=torch.float32, device=self.dev)
+            st = rl_mm._Outer(len(seq), bodies=torch.zeros((), dtype=torch.int32,
+                                                           device=self.dev))
+
+            def body():
+                m_r_new = table.index_select(0, st.ints[:1].long()).reshape(())
+                cuda_outer.outer_stop(m_r_new if kw.get("use_stopping", True) else st.mr[0],
+                                      st.mr, st.ints, st.go, **kw)
+                st.bodies.add_(1)
+
+            before = cuda_outer.while_launches
+            try:
+                outers = rl_mm._while_loop(body, st, len(seq))
+                torch.cuda.synchronize()
+            except Exception as exc:
+                raise _Fault(f"K7w {label}: {type(exc).__name__}: {exc}") from exc
+            k7w = cuda_outer.while_launches - before
+            pmr, pints, pgo = cuda_outer.initial_state(self.dev, len(seq))
+            while bool(pgo):
+                m_r_new = table[int(pints[0])]
+                cuda_outer.outer_stop_plain(m_r_new if kw.get("use_stopping", True) else pmr[0],
+                                            pmr, pints, pgo, **kw)
+            same = torch.equal(st.mr.view(torch.int32), pmr.view(torch.int32)) \
+                and torch.equal(st.ints, pints) and torch.equal(st.go, pgo)
+            worst = max(worst, float(torch.nan_to_num(torch.abs(st.mr - pmr)).max()))
+            log = rl_mm.loop_log[-1]
+            self.report(f"K7w {label}: {outers} outers, {int(st.bodies) - 1} bodies in the node, "
+                        f"K7w {k7w} (its own count {log['k7w']}), reads {log['reads']}, state "
+                        f"bitwise the twin's: {same}")
+            self.check(same and int(st.bodies) == outers == int(pints[0]) == log["k7w"] == k7w
+                       and log["reads"] == 1,
+                       f"K7w {label}: the WHILE node runs outers - 1 bodies, the twin's state")
+        ms, plain_ms = self._k7w_times(cuda_outer, 1000)
+        self.report(f"K7w: one outer step of the WHILE node {ms:.4f} ms, of the host loop "
+                    f"{plain_ms:.4f} ms")
+        # K7's state (61 bytes), the byte of go that K7w reads and its runs
+        # (an int32 read and written)
+        self.rows["K7w"] = dict(ms=ms, device_ms=ms, plain_ms=plain_ms, library_ms=None,
+                                max_abs_err=worst, **_bound(61 + 1 + 8, 10, "f32"))
+
+    def _k7w_times(self, cuda_outer, n):
+        """(ms per outer of one WHILE launch over a body of K7 alone, ms per
+        outer of the host loop over the same body), each the median of 5
+        runs of ``n`` outers; the WHILE graph is built once."""
+        torch = self.torch
+        kw = dict(iterations=n, blind=True, tau=0.0, use_stopping=False)
+        mr, ints, go = cuda_outer.initial_state(self.dev, n)
+        start, runs = ints.clone(), torch.zeros(1, dtype=torch.int32, device=self.dev)
+        body = lambda: cuda_outer.outer_stop(mr[0], mr, ints, go, **kw)
+        body()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.stream(torch.cuda.Stream(self.dev)):
+            graph.capture_begin(capture_error_mode="thread_local")
+            body()
+            graph.capture_end()
+        handles = cuda_outer.while_build(graph.raw_cuda_graph(), go, runs)
+
+        def node():
+            ints.copy_(start)
+            runs.zero_()
+            go.fill_(True)
+            cuda_outer.while_launch(handles, self.dev)
+
+        def host():
+            ints.copy_(start)
+            more = True
+            while more:
+                body()
+                more = ints.tolist()[3]
+
+        try:
+            node_ms = _median_ms(torch, node, 5)
+            host_ms = _median_ms(torch, host, 5)
+            node_ms = (node_ms + _median_ms(torch, node, 5)) / 2
+            torch.cuda.synchronize()
+            # no eager outer here: K7w runs before the node and after each of
+            # its n bodies
+            if int(ints[0]) != n or int(runs) != n + 1:
+                raise _Fault(f"K7w timing: the node ran {int(ints[0])} outers and K7w "
+                             f"{int(runs)} times, not {n} and {n + 1}")
+        finally:
+            cuda_outer.while_free(*handles)
+            graph.reset()
+        return node_ms / n, host_ms / n
+
     def inner_loop_routes(self):
         """The K2 inner loop (``inner_loop='pallas'``) against the op loop
         (``'xla'``, K1 and K3) on one 255^2 blind solve of 3 outers: u
@@ -725,7 +830,7 @@ def certify_kernels(report=print, device="cuda", rows: dict | None = None) -> bo
     dev = _cuda(device)
     check = _Checks(report)
     cert = _Certify(torch, dev, check, report, {} if rows is None else rows)
-    for section in (cert.k1, cert.k2, cert.k3, cert.k4, cert.k5, cert.k6, cert.k7,
+    for section in (cert.k1, cert.k2, cert.k3, cert.k4, cert.k5, cert.k6, cert.k7, cert.k7w,
                     cert.inner_loop_routes, cert.glue):
         try:
             section()

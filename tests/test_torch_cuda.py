@@ -685,8 +685,9 @@ def test_solver_conv_method_routes_on_gpu(method, precision, want, not_want):
 
 @pytest.mark.cuda
 def test_certify_kernels_passes_on_gpu():
-    """utils.selftest.certify_kernels: K1-K6 at the 24 MP shapes, the K2
-    inner loop against the op loop, the glue against one op at a time."""
+    """utils.selftest.certify_kernels: K1-K6 at the 24 MP shapes, K7 and
+    K7w, the K2 inner loop against the op loop, the glue against one op at
+    a time."""
     from ics_tpu_torch.utils.selftest import certify_kernels
 
     _need_gpu()
@@ -695,7 +696,7 @@ def test_certify_kernels_passes_on_gpu():
         line for line in lines if "FAIL" in line or "ERROR" in line)
     assert lines[-1].split(": ")[-1].endswith("checks passed")
     keys = {"ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err"}
-    assert set(rows) == {"K1", "K2", "K3", "K4s", "K4", "K4h", "K4d", "K5", "K6", "K7"}
+    assert set(rows) == {"K1", "K2", "K3", "K4s", "K4", "K4h", "K4d", "K5", "K6", "K7", "K7w"}
     assert all(set(row) == keys for row in rows.values())
     # the library calls timed beside K1, K3, K4h and K4d are held against
     # the twins
@@ -790,34 +791,196 @@ def test_k7_matches_twin_bitwise_on_gpu(blind, tau, early_stop, use_stopping):
     ("use_tv collab", 96, 5, True, 0.0, dict(use_tv=True, tv_norm="collab")),
 ])
 def test_graph_loop_matches_the_eager_loop_bitwise_on_gpu(label, m, mk, blind, tau, cfg):
-    """A solve replayed as CUDA graphs against the same solve in the Python
-    outer loop (``_eager_outer_loop()``): the same bits, outers and
-    launches; one host read per replay; K7 once per outer."""
+    """A solve whose outers after the first run as one WHILE-graph launch
+    against the same solve in the Python outer loop
+    (``_eager_outer_loop()``): the same bits, outers and launches; one host
+    read per solve; K7 and K7w once per outer."""
     from ics_tpu_torch.models import rl_mm
 
     dev = _need_gpu()
     image, u, psf, win = _solver_problem(m, mk)
     kw = dict(tau=tau, iterations=40, lambd=1000.0, blind=blind,
               config=rl_mm.RLConfig(**cfg), device=dev)
-    runs = []
-    for eager in (False, True):
-        before = rl_mm._read_launches()
-        with rl_mm._eager_outer_loop() if eager else contextlib.nullcontext():
-            res = rl_mm.richardson_lucy_MM(image, u, psf, *win, **kw)
-        torch.cuda.synchronize()
-        runs.append((res, [a - b for a, b in zip(rl_mm._read_launches(), before)]))
-        if not eager:
-            log = rl_mm.loop_log[-1]
-    (got, got_n), (want, want_n) = runs
-    k7 = [mod for mod, _ in rl_mm._launch_counters()].index(cuda_outer)
+    (got, got_n, log), (want, want_n, _) = _both_loops(
+        lambda: rl_mm.richardson_lucy_MM(image, u, psf, *win, **kw))
     assert got.iterations > 1 and bool(torch.isfinite(got.u).all())
-    assert (log["route"], log["outers"], log["reads"]) == ("graph", got.iterations,
-                                                          got.iterations - 1)
-    assert log["capture_ms"] > 0
+    _check_while(log, got.iterations, got_n, want_n)
     for name in ("u", "u_full", "psf", "image", "stats"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     if got.trajectory is not None:
         for key, values in got.trajectory.items():
             assert (values == want.trajectory[key]).all(), key
-    assert got_n[k7] == got.iterations and want_n[k7] == 0
-    assert got_n[:k7] + got_n[k7 + 1:] == want_n[:k7] + want_n[k7 + 1:]
+
+
+def _both_loops(run):
+    """``run()`` in the device-state loop, then inside
+    ``_eager_outer_loop()``: (result, launch-counter changes, the last
+    loop_log entry or None) of each."""
+    from ics_tpu_torch.models import rl_mm
+
+    runs = []
+    for eager in (False, True):
+        before = rl_mm._read_launches()
+        rl_mm.loop_log.clear()
+        with rl_mm._eager_outer_loop() if eager else contextlib.nullcontext():
+            res = run()
+        torch.cuda.synchronize()
+        runs.append((res, [a - b for a, b in zip(rl_mm._read_launches(), before)],
+                     rl_mm.loop_log[-1] if rl_mm.loop_log else None))
+    assert runs[1][2] is None  # the Python loop logs nothing
+    return runs
+
+
+def _check_while(log, outers, got_n, want_n, reads=1):
+    """One WHILE solve of ``outers`` outers: its log, K7 and K7w once per
+    outer (K7w's runs as it counted them on the card), every other counter
+    as in the Python loop."""
+    from ics_tpu_torch.models import rl_mm
+
+    names = [(mod, name) for mod, name in rl_mm._launch_counters()]
+    k7, k7w = names.index((cuda_outer, "launches")), names.index((cuda_outer, "while_launches"))
+    assert (log["route"], log["outers"], log["reads"], log["k7w"]) == ("while", outers, reads,
+                                                                       outers)
+    assert log["capture_ms"] > 0 and log["instantiate_ms"] > 0
+    assert got_n[k7] == got_n[k7w] == outers and want_n[k7] == want_n[k7w] == 0
+    rest = lambda n: [v for i, v in enumerate(n) if i not in (k7, k7w)]
+    assert rest(got_n) == rest(want_n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["pam", "pd"])
+@pytest.mark.parametrize("blind,tau,iterations", [(True, 0.0, 40), (False, 1e-4, 40),
+                                                  (False, 1e9, 6)])
+def test_while_loop_pam_pd_match_the_eager_loop_bitwise_on_gpu(solver, blind, tau, iterations):
+    """PAM and PD through the WHILE graph against their Python loops: the
+    same bits (u, psf, stats), outers and launches; one host read."""
+    from ics_tpu_torch.models.rl_pam import richardson_lucy_PAM
+    from ics_tpu_torch.models.rl_pd import richardson_lucy_PD
+
+    dev = _need_gpu()
+    fn = richardson_lucy_PAM if solver == "pam" else richardson_lucy_PD
+    image, u, psf, win = _solver_problem(61, 5)
+    (got, got_n, log), (want, want_n, _) = _both_loops(
+        lambda: fn(image, u, psf, *win, tau=tau, iterations=iterations, blind=blind,
+                   device=dev))
+    assert got.iterations > 1 and bool(torch.isfinite(got.u).all())
+    if tau == 1e9:
+        assert (got.iterations, got.converged) == (iterations, False)
+    _check_while(log, got.iterations, got_n, want_n)
+    for name in ("u", "psf", "stats"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(70, 90, 3), (64, 48)])
+def test_while_loop_tv_denoise_matches_the_eager_loop_bitwise_on_gpu(shape):
+    """``tv_denoise`` through the WHILE graph with K7 as its counter: the
+    eager loop's bits, no host read, K7 once per iteration."""
+    from ics_tpu_torch.models.tv_denoise import tv_denoise
+
+    dev = _need_gpu()
+    image = torch.rand(shape, generator=torch.Generator().manual_seed(7))
+    (got, got_n, log), (want, want_n, _) = _both_loops(
+        lambda: tv_denoise(image, weight=0.1, iterations=20, device=dev))
+    _check_while(log, 20, got_n, want_n, reads=0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["mm", "pam", "pd", "tv_denoise"])
+def test_while_loop_one_iteration_builds_no_graph_on_gpu(solver):
+    """With ``iterations=1`` the one outer runs eagerly: no capture, no
+    WHILE graph, no K7w, no read; the Python loop's bits."""
+    from ics_tpu_torch.models import rl_mm
+    from ics_tpu_torch.models.rl_pam import richardson_lucy_PAM
+    from ics_tpu_torch.models.rl_pd import richardson_lucy_PD
+    from ics_tpu_torch.models.tv_denoise import tv_denoise
+
+    dev = _need_gpu()
+    image, u, psf, win = _solver_problem(61, 5)
+    if solver == "tv_denoise":
+        run = lambda: tv_denoise(image, iterations=1, device=dev)
+    else:
+        fn = {"mm": rl_mm.richardson_lucy_MM, "pam": richardson_lucy_PAM,
+              "pd": richardson_lucy_PD}[solver]
+        run = lambda: fn(image, u, psf, *win, tau=0.0, iterations=1, blind=True, device=dev)
+    (got, got_n, log), (want, want_n, _) = _both_loops(run)
+    assert log == dict(route="while", outers=1, reads=0, k7w=0, capture_ms=None,
+                       instantiate_ms=None)
+    k7w = [(mod, name) for mod, name in rl_mm._launch_counters()].index(
+        (cuda_outer, "while_launches"))
+    assert got_n[k7w] == 0
+    if solver == "tv_denoise":
+        assert torch.equal(got, want)
+    else:
+        assert got.iterations == 1
+        for name in ("u", "psf", "stats"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+def test_while_loop_reuses_the_capture_pool_on_gpu():
+    """Every capture on a device shares one pool and one stream
+    (``rl_mm._capture_pool``): solving the same problem again reserves no
+    more memory, and the pool survives each solve's graph."""
+    from ics_tpu_torch.models import rl_mm
+
+    dev = _need_gpu()
+    image, u, psf, win = _solver_problem(150, 9)
+    kw = dict(tau=1e9, iterations=6, lambd=1000.0, blind=False, device=dev)
+    reserved = []
+    for _ in range(3):
+        rl_mm.richardson_lucy_MM(image, u, psf, *win, **kw)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(dev))
+        assert rl_mm.loop_log[-1]["route"] == "while"
+    assert reserved[1] == reserved[2]
+    pool, stream, done = rl_mm._capture_pool(dev)
+    assert rl_mm._capture_pool(dev) == (pool, stream, done) and done.query()
+
+
+@pytest.mark.cuda
+def test_release_capture_pool_returns_its_blocks_on_gpu():
+    """``rl_mm._release_capture_pool`` drops the device's capture pool and
+    hands back its blocks, which ``empty_cache`` alone keeps; the next
+    solve makes a new pool and gives the same bits."""
+    from ics_tpu_torch.models import rl_mm
+
+    dev = _need_gpu()
+    image, u, psf, win = _solver_problem(150, 9)
+    kw = dict(tau=1e9, iterations=6, lambd=1000.0, blind=False, device=dev)
+    first = rl_mm.richardson_lucy_MM(image, u, psf, *win, **kw)
+    torch.cuda.synchronize()
+    pool = rl_mm._capture_pool(dev)
+    torch.cuda.empty_cache()  # what stays is the capture pool's
+    held = torch.cuda.memory_reserved(dev)
+    rl_mm._release_capture_pool(dev)
+    assert dev.index not in rl_mm._POOLS and torch.cuda.memory_reserved(dev) < held
+    again = rl_mm.richardson_lucy_MM(image, u, psf, *win, **kw)
+    assert rl_mm.loop_log[-1]["route"] == "while" and rl_mm._capture_pool(dev) != pool
+    for name in ("u", "psf", "stats"):
+        assert torch.equal(getattr(first, name), getattr(again, name)), name
+
+
+@pytest.mark.cuda
+def test_a_solve_under_the_profiler_takes_the_python_loop_on_gpu():
+    """Under torch.profiler (CUDA activity) a solve launches no WHILE graph
+    (fault E): the Python loop, logged nowhere, with the WHILE loop's bits
+    and no K7w."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ics_tpu_torch.models import rl_mm
+
+    dev = _need_gpu()
+    image, u, psf, win = _solver_problem(96, 5)
+    kw = dict(tau=0.0, iterations=40, lambd=1000.0, blind=True, device=dev)
+    want = rl_mm.richardson_lucy_MM(image, u, psf, *win, **kw)
+    assert rl_mm.loop_log[-1]["route"] == "while"
+    rl_mm.loop_log.clear()
+    before = cuda_outer.while_launches
+    with profile(activities=[ProfilerActivity.CUDA]):
+        got = rl_mm.richardson_lucy_MM(image, u, psf, *win, **kw)
+        torch.cuda.synchronize()
+    assert not rl_mm.loop_log and cuda_outer.while_launches == before
+    for name in ("u", "psf", "stats"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name

@@ -1,15 +1,22 @@
-"""The RL-MM solver's device-state outer loop (models/rl_mm.py::_solve with
-K7's twin, ops/cuda_outer.py) against the JAX solver's ``lax.while_loop`` on
-the CPU, and against the port's Python outer loop bitwise."""
+"""The solvers' device-state outer loop (models/rl_mm.py::_state_loop with
+K7's twin, ops/cuda_outer.py) against the JAX solvers' ``lax.while_loop``
+(and ``tv_denoise``'s ``lax.fori_loop``) on the CPU, and against the port's
+Python outer loop bitwise: the MM solver, PAM, PD and ``tv_denoise``."""
 
 import numpy as np
 import pytest
 import torch
 
 from ics_tpu.models import rl_mm as jrl
+from ics_tpu.models import rl_pam as jpam
+from ics_tpu.models import rl_pd as jpd
+from ics_tpu.models.tv_denoise import tv_denoise as j_tv_denoise
 from ics_tpu.ops.reductions import whiteness_weights
 
 from ics_tpu_torch.models import rl_mm as trl
+from ics_tpu_torch.models import rl_pam as tpam
+from ics_tpu_torch.models import rl_pd as tpd
+from ics_tpu_torch.models.tv_denoise import tv_denoise
 from ics_tpu_torch.ops import cuda_conv, cuda_outer, cuda_solver
 from test_torch_solver import IMAGE, PSF, U, WIN, _args
 
@@ -165,6 +172,78 @@ def test_replays_count_the_change_of_one_body_times_the_outers_run():
         trl._write_launches(before)
 
 
+def _while_entry(outers, reads):
+    return dict(route="while", outers=outers, reads=reads, k7w=None, capture_ms=1.0,
+                instantiate_ms=1.0)
+
+
+@pytest.mark.parametrize("outers,k7w", [(6, 6), (6, 5), (6, 7)])
+def test_settle_counts_a_while_launch_from_k7w_own_count(outers, k7w):
+    """A WHILE launch is counted from the state read back: K7's ``it`` and
+    K7w's runs must agree, one of each per outer; the wrapper counters add
+    one captured body's launches times the bodies K7w counted."""
+    before = trl._read_launches()
+    per_body = [0] * len(before)
+    per_body[0], per_body[5] = 3, 1  # K1 three times and K7 once per body
+    entry = _while_entry(outers, 1)
+    try:
+        if k7w != outers:
+            with pytest.raises(RuntimeError, match="K7w runs"):
+                trl._settle(entry, per_body, [outers, 0, 1, 0, k7w])
+            assert trl._read_launches() == before
+            return
+        trl._settle(entry, per_body, [outers, 0, 1, 0, k7w])
+        after = trl._read_launches()
+        assert (entry["outers"], entry["k7w"]) == (outers, k7w)
+        assert after[0] - before[0] == 3 * (k7w - 1)
+        assert after[5] - before[5] == k7w - 1
+        assert cuda_outer.while_launches - before[-1] == k7w
+    finally:
+        trl._write_launches(before)
+
+
+class _Copy:
+    """A stand-in for the CUDA event after a launch's copy of its counts."""
+
+    def __init__(self, done):
+        self.done, self.waited = done, False
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.waited = True
+
+
+@pytest.mark.parametrize("runs", [7, 6])
+def test_a_fixed_count_while_launch_is_counted_when_the_counters_are_read(runs):
+    """A fixed-count loop (``tv_denoise``) reads nothing: its launch waits in
+    ``_UNREAD`` until its copy of the counts is done and a solve starts, or
+    until the counters are read, which waits for the copy; K7w's count is
+    held against the count the loop was given (7)."""
+    before = trl._read_launches()
+    per_body = [0] * len(before)
+    per_body[5] = 1
+    entry = _while_entry(7, 0)
+    counts = torch.tensor([runs, 0, 0, 0, runs], dtype=torch.int32)
+    copied = _Copy(done=False)
+    try:
+        trl._UNREAD.append((entry, per_body, counts, copied))
+        trl._settle_unread(wait=False)  # a solve's start: the copy is not done
+        assert trl._launch_values() == before and entry["k7w"] is None and trl._UNREAD
+        if runs != 7:
+            with pytest.raises(RuntimeError, match="per outer, 7 outers"):
+                trl._read_launches()
+        else:
+            after = trl._read_launches()
+            assert entry["k7w"] == 7 and after[-1] - before[-1] == 7
+            assert after[5] - before[5] == 6
+        assert not trl._UNREAD and copied.waited
+    finally:
+        trl._UNREAD.clear()
+        trl._write_launches(before)
+
+
 def test_eager_outer_loop_restores_the_route_on_exit():
     args, kw = _args(tau=1e9, iterations=2, lambd=1000.0, blind=False)
     assert trl._EAGER_LOOP is False
@@ -181,4 +260,144 @@ def test_eager_outer_loop_restores_the_route_on_exit():
         raise RuntimeError("inside")
     assert trl._EAGER_LOOP is False
     trl.richardson_lucy_MM(*args, device="cpu", **kw)
-    assert trl.loop_log[-1] == dict(route="host", outers=2, reads=2, capture_ms=None)
+    assert trl.loop_log[-1] == dict(route="host", outers=2, reads=2, k7w=None, capture_ms=None,
+                                    instantiate_ms=None)
+
+
+SOLVERS = {"pam": (jpam.richardson_lucy_PAM, tpam.richardson_lucy_PAM),
+           "pd": (jpd.richardson_lucy_PD, tpd.richardson_lucy_PD)}
+SOLVER_CASES = {
+    "blind, stop on": dict(tau=0.0, iterations=40, blind=True),
+    "non-blind, stop on": dict(tau=1e-4, iterations=40, blind=False),
+    "iterations cap": dict(tau=1e9, iterations=5, blind=False),
+}
+
+
+@pytest.mark.parametrize("case", list(SOLVER_CASES))
+@pytest.mark.parametrize("solver", list(SOLVERS))
+def test_pam_pd_device_state_loop_matches_jax_and_the_python_loop(solver, case):
+    """PAM and PD through ``_solve_outers``' device-state loop: JAX's outer
+    count and verdict, u within 5e-5 (five inner steps per outer in another
+    f32 order), the PSF within 1e-6, the stats within 1e-6 or 1e-4 relative
+    (M_r, a reduction in another order: PD's reads 1.9e-5 relative after 5
+    outers); bitwise the port's Python loop; one host read per outer."""
+    kw = dict(SOLVER_CASES[case])
+    args = (IMAGE, U, PSF, *WIN.values(), kw.pop("tau"))
+    jfn, tfn = SOLVERS[solver]
+    want = jfn(*args, **kw)
+    trl.loop_log.clear()
+    got = tfn(*args, device="cpu", **kw)
+    log = trl.loop_log[-1]
+    with trl._eager_outer_loop():
+        eager = tfn(*args, device="cpu", **kw)
+    assert len(trl.loop_log) == 1  # the Python loop logged nothing
+    assert (log["route"], log["outers"], log["reads"]) == ("host", got.iterations,
+                                                         got.iterations)
+    assert (got.iterations, got.converged) == (want.iterations, want.converged)
+    if case == "iterations cap":
+        assert (got.iterations, got.converged) == (5, False)
+    else:
+        assert got.converged and got.iterations < 40
+    np.testing.assert_allclose(got.u.numpy(), np.asarray(want.u), atol=5e-5, rtol=0)
+    np.testing.assert_allclose(got.psf.numpy(), np.asarray(want.psf), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got.stats.numpy(), np.asarray(want.stats), atol=1e-6, rtol=1e-4)
+    for name in ("u", "psf", "image", "stats"):
+        assert torch.equal(getattr(got, name), getattr(eager, name)), name
+
+
+def _planar_np(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).permute(2, 0, 1).contiguous()
+
+
+@pytest.mark.parametrize("solver", list(SOLVERS))
+def test_pam_pd_use_stopping_false_matches_jax(solver):
+    """``use_stopping=False``: K7 only counts to ``iterations``, M_r stays 0,
+    as JAX's; bitwise the Python loop."""
+    w = whiteness_weights(WIN["bottom"] - WIN["top"], WIN["right"] - WIN["left"])
+    if solver == "pam":
+        kw = dict(**WIN, tau=0.0, step_factor=1e-3, lambda_tv=2e-3, epsilon=1e-3,
+                  iterations=4, blind=True, correlation=False, use_stopping=False)
+        want = jpam._solve_pam(*map(np.asarray, (IMAGE, U, PSF, w)), conv_method="auto", **kw)
+        run = lambda: tpam._solve_pam(*map(torch.from_numpy, (IMAGE, U, PSF)), w, **kw)
+        hwc = lambda t: t
+    else:
+        kw = dict(**WIN, tau_stop=0.0, step_factor=1e-3, lambda_tv=1e-4, sigma=0.05, tau=0.05,
+                  theta=1.0, iterations=4, blind=True, correlation=False, use_stopping=False)
+        want = jpd._solve_pd(*map(np.asarray, (IMAGE, IMAGE, PSF, w)), **kw)
+        run = lambda: tpd._solve_pd(_planar_np(IMAGE), _planar_np(IMAGE), _planar_np(PSF), w,
+                                    **kw)
+        hwc = lambda t: t.permute(1, 2, 0)
+    got = run()
+    assert trl.loop_log[-1]["outers"] == 4
+    with trl._eager_outer_loop():
+        eager = run()
+    np.testing.assert_allclose(hwc(got[0]).numpy(), np.asarray(want[0]), atol=5e-5, rtol=0)
+    np.testing.assert_allclose(hwc(got[1]).numpy(), np.asarray(want[1]), atol=1e-6, rtol=0)
+    want_stats = np.array([float(want[2]), float(want[3]), *map(float, want[4:])])
+    np.testing.assert_allclose(got[2].numpy(), want_stats, atol=1e-6, rtol=0)
+    assert got[2][:3].tolist() == [4.0, 0.0, 0.0]
+    for a, b in zip(got, eager):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,iterations", [((23, 31, 3), 20), ((40, 27), 7), ((9, 12, 3), 1),
+                                              ((9, 12, 3), 0)])
+def test_tv_denoise_device_state_loop_matches_jax_and_the_eager_loop(shape, iterations):
+    """``tv_denoise``'s iterations through the device-state loop, K7 as the
+    counter: within 1e-6 of JAX's ``fori_loop`` (elementwise float32 in
+    another fusion), bitwise the Python loop, one outer per iteration."""
+    image = np.random.default_rng(sum(shape) + iterations).random(shape).astype(np.float32)
+    want = np.asarray(j_tv_denoise(image, weight=0.1, iterations=iterations))
+    trl.loop_log.clear()
+    before = cuda_outer.launches
+    got = tv_denoise(image, weight=0.1, iterations=iterations, device="cpu")
+    assert cuda_outer.launches == before  # the twin counts no launch
+    assert trl.loop_log[-1] == dict(route="host", outers=iterations, reads=iterations,
+                                    k7w=None, capture_ms=None, instantiate_ms=None)
+    with trl._eager_outer_loop():
+        eager = tv_denoise(image, weight=0.1, iterations=iterations, device="cpu")
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    assert torch.equal(got, eager)
+
+
+@pytest.mark.parametrize("solver", ["mm", "pam", "pd", "tv_denoise"])
+def test_a_solve_under_the_profiler_takes_the_python_loop(solver):
+    """While torch's profiler runs, every solve takes the Python outer loop
+    (``_eager_loop``; no WHILE launch runs under a profiler, fault E), with
+    the device-state loop's bits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if solver == "tv_denoise":
+        image = np.random.default_rng(3).random((23, 31, 3)).astype(np.float32)
+        run = lambda: (tv_denoise(image, weight=0.1, iterations=6, device="cpu"),)
+    else:
+        fn = {"mm": trl.richardson_lucy_MM, "pam": tpam.richardson_lucy_PAM,
+              "pd": tpd.richardson_lucy_PD}[solver]
+        args = (IMAGE, U, PSF, *WIN.values(), 0.0)
+        run = lambda: (lambda r: (r.u, r.psf, r.stats))(
+            fn(*args, iterations=6, blind=True, device="cpu"))
+    want = run()
+    trl.loop_log.clear()
+    assert not trl._eager_loop()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert trl._eager_loop()
+        got = run()
+    assert not trl.loop_log and not trl._eager_loop()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_a_done_copy_is_counted_at_the_next_solve_start():
+    """A solve's start counts the fixed-count launches whose copy of the
+    counts is done, without waiting for any."""
+    before = trl._read_launches()
+    entry = _while_entry(3, 0)
+    copied = _Copy(done=True)
+    try:
+        trl._UNREAD.append((entry, [0] * len(before), torch.tensor([3, 0, 0, 0, 3]), copied))
+        trl._settle_unread(wait=False)
+        assert entry["k7w"] == 3 and not trl._UNREAD
+        assert trl._launch_values()[-1] - before[-1] == 3
+    finally:
+        trl._UNREAD.clear()
+        trl._write_launches(before)
