@@ -73,8 +73,13 @@ _SIGNATURES = {
     # m_r_new, mr, ints, go, iterations, blind, tau, early, keep, patience,
     # use_stopping, stream (ops/cuda_outer.py)
     "ics_outer_stop": [_P, _P, _P, _P, _I, _I, _F, _I, _F, _I, _I, _P],
-    # body (cudaGraph_t), go, runs, graph (out), exec (out) (ops/cuda_outer.py)
-    "ics_while_build": [_P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P)],
+    # body (cudaGraph_t), go, runs, stamps (or null), graph (out), exec (out)
+    # (ops/cuda_outer.py)
+    "ics_while_build": [_P, _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P)],
+    # graph (cudaGraph_t), counts (out: kernel, memcpy, memset, other)
+    "ics_graph_nodes": [_P, ctypes.POINTER(_I)],
+    # buf, index, count, stream (utils/trace.py)
+    "ics_stamp": [_P, _I, _I, _P],
     # exec, stream
     "ics_while_launch": [_P, _P],
     # graph, exec

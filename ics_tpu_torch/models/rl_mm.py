@@ -51,6 +51,7 @@ from ics_tpu_torch.ops.cuda_correlate import psf_gradient_planar
 from ics_tpu_torch.ops.cuda_solver import fits, inner_loop_ops, inner_loop_planar
 from ics_tpu_torch.ops.reductions import whiteness_weights
 from ics_tpu_torch.ops.tv import _couple, tv_auto_planar
+from ics_tpu_torch.utils import trace
 
 __all__ = ["richardson_lucy_MM", "RLConfig", "RLResult", "inner_loop_route",
            "print_solver_report"]
@@ -67,7 +68,10 @@ _EAGER_LOOP = False  # set by _eager_outer_loop()
 # as K7w counted them on the card (None on the CPU, and until a fixed-count
 # loop's count is read: _read_launches), and the host milliseconds of the
 # body's capture and of the WHILE graph's build and instantiation (None
-# without a graph)
+# without a graph); a 'while' entry also has ``body_nodes``, the captured
+# body's graph nodes by type (ops/cuda_outer.py::graph_nodes; None without
+# a graph).  A stamping tracer's solve spans keep their entries too
+# (utils/trace.py), whatever this log's bound.
 loop_log = collections.deque(maxlen=64)
 # the fixed-count WHILE launches whose counts the host has not read yet:
 # (loop_log entry, launches per captured body, the state's counts as copied
@@ -649,11 +653,24 @@ def _while_loop(body, st, iterations, read=True):
     the launch, without waiting, and counts it once the copy is done: when
     the launch counters are read (``_read_launches``), or at a later
     solve's start.  A capture, build or launch that fails raises; the
-    graphs are freed before returning, the pool stays for the next."""
+    graphs are freed before returning, the pool stays for the next.
+
+    The captured body's nodes are counted by type into the entry
+    (``body_nodes``) while the card runs the launch.  Within a stamping
+    tracer's frame (utils/trace.py::active) the solve opens the spans
+    'outer 1', 'capture', 'build' and 'while', and K7w stamps each of its
+    runs into a buffer of the tracer's, made before the capture; with no
+    tracer K7w gets a null pointer and nothing more is done."""
     _settle_unread(wait=False)
-    entry = dict(route="while", outers=0, reads=0, k7w=0, capture_ms=None, instantiate_ms=None)
+    entry = dict(route="while", outers=0, reads=0, k7w=0, capture_ms=None, instantiate_ms=None,
+                 body_nodes=None)
+    tracer = trace.active()
+    span = _untraced if tracer is None else tracer.span
+    stamps = None if tracer is None or iterations < 2 else tracer.k7w_stamps(iterations + 1,
+                                                                             st.go.device)
     if iterations > 0:
-        body()
+        with span("outer 1", entry):
+            body()
         entry["outers"] = 1
     if iterations > 1:
         dev = st.go.device
@@ -662,7 +679,7 @@ def _while_loop(body, st, iterations, read=True):
         before = _launch_values()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.stream(stream):
+            with span("capture", entry, device=False), torch.cuda.stream(stream):
                 graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                 body()
                 graph.capture_end()
@@ -671,20 +688,23 @@ def _while_loop(body, st, iterations, read=True):
             _set_launches(before)
         t1 = time.perf_counter()
         try:
-            handles = cuda_outer.while_build(graph.raw_cuda_graph(), st.go, st.k7w)
+            with span("build", entry, device=False):
+                handles = cuda_outer.while_build(graph.raw_cuda_graph(), st.go, st.k7w, stamps)
             t2 = time.perf_counter()
             try:
-                current = torch.cuda.current_stream(dev)
-                current.wait_event(done)
-                cuda_outer.while_launch(handles, dev)
-                if read:
-                    counts = st.counts.tolist()  # the one host read
-                else:
-                    host = torch.empty(5, dtype=torch.int32, pin_memory=True)
-                    host.copy_(st.counts, non_blocking=True)
-                    copied = torch.cuda.Event()
-                    copied.record(current)
-                done.record(current)
+                with span("while", entry, device=False, k7w=stamps):
+                    current = torch.cuda.current_stream(dev)
+                    current.wait_event(done)
+                    cuda_outer.while_launch(handles, dev)
+                    entry["body_nodes"] = cuda_outer.graph_nodes(graph.raw_cuda_graph())
+                    if read:
+                        counts = st.counts.tolist()  # the one host read
+                    else:
+                        host = torch.empty(5, dtype=torch.int32, pin_memory=True)
+                        host.copy_(st.counts, non_blocking=True)
+                        copied = torch.cuda.Event()
+                        copied.record(current)
+                    done.record(current)
             finally:
                 cuda_outer.while_free(*handles)
         finally:
@@ -697,6 +717,10 @@ def _while_loop(body, st, iterations, read=True):
             _UNREAD.append((entry, per_body, host, copied))
     loop_log.append(entry)
     return entry["outers"]
+
+
+def _untraced(*_, **__):
+    return contextlib.nullcontext()
 
 
 def _capture_pool(dev):

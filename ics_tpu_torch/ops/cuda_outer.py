@@ -18,8 +18,10 @@ launches the kernel or raises.  ``while_build`` wraps a captured outer body
 (``torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph()``) in the graph
 ``K7w -> WHILE { body -> K7w }``; ``while_launch`` runs it.  K7w counts its
 own runs in an int32 on the card (``runs``), which the caller reads with the
-state and adds to ``while_launches``.  K7w has no plain twin: on the CPU the
-host loop reads ``go`` itself (models/rl_mm.py).
+state and adds to ``while_launches``; given a tracer's ``stamps`` buffer it
+also stamps the card's clock at each run (utils/trace.py).  K7w has no plain
+twin: on the CPU the host loop reads ``go`` itself (models/rl_mm.py).
+``graph_nodes`` counts a captured body's nodes by type.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 from ics_tpu_torch import _build
 
 __all__ = ["initial_state", "outer_stop", "outer_stop_plain", "while_build", "while_launch",
-           "while_free", "cuda_versions"]
+           "while_free", "graph_nodes", "cuda_versions"]
 
 launches = 0  # kernel launches by outer_stop (the twin never counts)
 # K7w launches: a WHILE launch runs K7w once before its node and once after
@@ -106,21 +108,29 @@ def outer_stop(m_r_new, mr, ints, go, *, iterations, blind, tau, early_stop=0.0,
     launches += 1
 
 
-def while_build(body_graph: int, go, runs) -> tuple[int, int]:
+def while_build(body_graph: int, go, runs, stamps=None) -> tuple[int, int]:
     """The outer graph ``K7w(go) -> WHILE { body -> K7w(go) }`` around the
     captured ``body_graph`` (a ``cudaGraph_t``), instantiated: returns its
     (graph, executable) handles for ``while_launch`` and ``while_free``.
     ``go`` is the state's bool that the body's K7 writes; ``runs`` a
     one-element int32 on the same device that every run of K7w adds one
-    to.  Raises when a step fails: there is no other route."""
+    to, from 0; ``stamps``: None, or a contiguous int64 on that device with
+    room for every run of K7w, into which each run writes the card's
+    %globaltimer at index ``runs`` (the graph's nodes are the same either
+    way).  Raises when a step fails: there is no other route."""
     if go.device.type != "cuda" or go.dtype != torch.bool or go.dim() != 0:
         raise ValueError(f"the WHILE graph's go is a 0-d bool on a CUDA device; got {go.dtype} "
                          f"{tuple(go.shape)} on {go.device}")
     if runs.device != go.device or runs.dtype != torch.int32 or runs.numel() != 1:
         raise ValueError(f"K7w's runs is one int32 on go's device; got {runs.dtype} "
                          f"{tuple(runs.shape)} on {runs.device}")
+    if stamps is not None and (stamps.device != go.device or stamps.dtype != torch.int64
+                               or stamps.dim() != 1 or not stamps.is_contiguous()):
+        raise ValueError(f"K7w's stamps are a contiguous 1-d int64 on go's device; got "
+                         f"{stamps.dtype} {tuple(stamps.shape)} on {stamps.device}")
     graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
-    rc = _build.load_library().ics_while_build(body_graph, go.data_ptr(), runs.data_ptr(),
+    at = stamps.data_ptr() if stamps is not None else None
+    rc = _build.load_library().ics_while_build(body_graph, go.data_ptr(), runs.data_ptr(), at,
                                                ctypes.byref(graph), ctypes.byref(exe))
     if rc != 0:
         raise RuntimeError(f"ics_while_build: CUDA error {rc} building or instantiating the "
@@ -141,6 +151,20 @@ def while_free(graph: int, exe: int) -> None:
     rc = _build.load_library().ics_while_free(graph, exe)
     if rc != 0:
         raise RuntimeError(f"ics_while_free: CUDA error {rc}")
+
+
+NODE_TYPES = ("kernel", "memcpy", "memset", "other")
+
+
+def graph_nodes(graph: int) -> dict[str, int]:
+    """The nodes of ``graph`` (a ``cudaGraph_t``, as a captured body's
+    ``raw_cuda_graph()``) by type, keyed by ``NODE_TYPES``; 'other' counts
+    events, waits, host calls, child graphs and conditionals."""
+    counts = (ctypes.c_int * 4)()
+    rc = _build.load_library().ics_graph_nodes(graph, counts)
+    if rc != 0:
+        raise RuntimeError(f"ics_graph_nodes: CUDA error {rc}")
+    return dict(zip(NODE_TYPES, counts))
 
 
 def cuda_versions() -> tuple[int, int]:

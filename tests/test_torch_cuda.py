@@ -8,6 +8,8 @@ card and no JAX; tests/conftest.py imports JAX, so skip it there:
 """
 
 import contextlib
+import statistics
+import time
 
 import pytest
 import torch
@@ -842,6 +844,7 @@ def _check_while(log, outers, got_n, want_n, reads=1):
     assert (log["route"], log["outers"], log["reads"], log["k7w"]) == ("while", outers, reads,
                                                                        outers)
     assert log["capture_ms"] > 0 and log["instantiate_ms"] > 0
+    assert set(log["body_nodes"]) == set(cuda_outer.NODE_TYPES) and log["body_nodes"]["kernel"] > 0
     assert got_n[k7] == got_n[k7w] == outers and want_n[k7] == want_n[k7w] == 0
     rest = lambda n: [v for i, v in enumerate(n) if i not in (k7, k7w)]
     assert rest(got_n) == rest(want_n)
@@ -906,7 +909,7 @@ def test_while_loop_one_iteration_builds_no_graph_on_gpu(solver):
         run = lambda: fn(image, u, psf, *win, tau=0.0, iterations=1, blind=True, device=dev)
     (got, got_n, log), (want, want_n, _) = _both_loops(run)
     assert log == dict(route="while", outers=1, reads=0, k7w=0, capture_ms=None,
-                       instantiate_ms=None)
+                       instantiate_ms=None, body_nodes=None)
     k7w = [(mod, name) for mod, name in rl_mm._launch_counters()].index(
         (cuda_outer, "while_launches"))
     assert got_n[k7w] == 0
@@ -984,3 +987,205 @@ def test_a_solve_under_the_profiler_takes_the_python_loop_on_gpu():
     assert not rl_mm.loop_log and cuda_outer.while_launches == before
     for name in ("u", "psf", "stats"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+# ------------------------------------------------------------------ tracing
+def _stamped(run, dev):
+    """``run()`` inside a stamping tracer's frame: (result, spans)."""
+    from ics_tpu_torch.utils.trace import Tracer
+
+    tracer = Tracer(sync=False)
+    with tracer.frame(dev):
+        res = run()
+    return res, tracer.collect(), tracer
+
+
+@pytest.mark.cuda
+def test_k7w_stamps_each_outer_on_gpu():
+    """K7w stamps each of its runs: the stamps rise strictly, one per run
+    as K7w counted them, and lie, on the host's clock, within the 'while'
+    span's launch and read; 'outer 1' ends on the card before the first."""
+    from ics_tpu_torch.models import rl_mm
+
+    dev = _need_gpu()
+    image, u, psf, win = _solver_problem(96, 5)
+    kw = dict(tau=0.0, iterations=40, lambd=1000.0, blind=True, device=dev)
+    res, spans, tracer = _stamped(lambda: rl_mm.richardson_lucy_MM(image, u, psf, *win, **kw),
+                                  dev)
+    assert [s["name"] for s in spans] == ["frame", "outer 1", "capture", "build", "while"]
+    first, capture, build, loop = spans[1:]
+    entry = rl_mm.loop_log[-1]
+    assert all(s["info"] is entry for s in spans[1:]) and entry["route"] == "while"
+    assert capture["device"] is None and build["device"] is None
+    stamps, err = loop["k7w"], tracer.clock_err_ns
+    assert len(stamps) == entry["k7w"] == res.iterations > 2
+    assert all(b > a for a, b in zip(stamps, stamps[1:]))
+    assert loop["device"] == (stamps[0], stamps[-1]) and loop["seq"][0] > first["seq"][1]
+    assert stamps[-1] - stamps[0] <= loop["host"][1] - loop["host"][0]
+    assert loop["host"][0] - err <= stamps[0] and stamps[-1] <= loop["host"][1] + err
+    assert first["device"][0] < first["device"][1] <= stamps[0]
+
+
+@pytest.mark.cuda
+def test_tracing_changes_no_graph_node_and_no_bit_on_gpu(monkeypatch):
+    """A solve traced and untraced: the same body nodes by type and the same
+    bits; untraced, K7w gets no stamp buffer (a null pointer)."""
+    from ics_tpu_torch.models import rl_mm
+
+    dev = _need_gpu()
+    image, u, psf, win = _solver_problem(96, 5)
+    kw = dict(tau=0.0, iterations=40, lambd=1000.0, blind=True, device=dev)
+    given, build = [], cuda_outer.while_build
+    monkeypatch.setattr(cuda_outer, "while_build",
+                        lambda *a: given.append(a[3] if len(a) > 3 else None) or build(*a))
+    run = lambda: rl_mm.richardson_lucy_MM(image, u, psf, *win, **kw)
+    plain = run()
+    nodes = rl_mm.loop_log[-1]["body_nodes"]
+    traced, spans, _ = _stamped(run, dev)
+    assert given[0] is None and isinstance(given[1], torch.Tensor)
+    assert given[1].dtype == torch.int64 and given[1].numel() == kw["iterations"] + 1
+    assert rl_mm.loop_log[-1]["body_nodes"] == nodes and nodes["kernel"] > 0
+    assert spans[-1]["info"]["body_nodes"] == nodes
+    for name in ("u", "psf", "stats"):
+        assert torch.equal(getattr(plain, name), getattr(traced, name)), name
+
+
+@pytest.mark.cuda
+def test_a_calibrated_stamp_lies_between_its_launch_and_its_sync_on_gpu():
+    from ics_tpu_torch.utils import trace
+
+    dev = _need_gpu()
+    tracer = trace.Tracer(sync=False)
+    offset, err = tracer.calibrate(dev)
+    assert tracer.clock_err_ns == err and 0 < err < 1_000_000
+    buf = torch.empty(8, dtype=torch.int64, device=dev)
+    for i in range(8):
+        t0 = time.perf_counter_ns()
+        trace.stamp(buf, i)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter_ns()
+        at = int(buf[i]) + offset
+        assert t0 - err <= at <= t1 + err, (t0, at, t1, err)
+    step, mean = trace.timer_resolution_ns(dev)
+    assert 0 < step <= mean * 64
+
+
+def _profiled_frame(dev):
+    """A small frame under torch.profiler (CPU and CUDA; its solves take the
+    Python loop) with a stamping tracer: (spans, the profiler's events, the
+    tracer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ics_tpu_torch.models.pipeline import deblur_module
+    from ics_tpu_torch.utils.trace import Tracer
+
+    gen = torch.Generator().manual_seed(11)
+    frame = (torch.rand((96, 128, 3), generator=gen) * 255).to(torch.uint8).numpy()
+    tracer = Tracer(sync=False)
+    kw = dict(mask_size=41, iterations=4, verbose=False, device=dev)
+    deblur_module(frame, "x", None, 5, **kw)  # warm: cuFFT plans, the allocator
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        deblur_module(frame, "x", None, 5, trace=tracer, **kw)
+        torch.cuda.synchronize(dev)
+    return tracer.collect(), list(prof.profiler.kineto_results.events()), tracer
+
+
+def _event_ns(e):
+    return e.start_ns(), e.start_ns() + e.duration_ns()
+
+
+@pytest.mark.cuda
+def test_spans_cover_every_device_operation_of_a_frame_on_gpu():
+    """Every statement of deblur_module that launches device work lies in a
+    span: each kernel, copy and set of a profiled frame was launched inside
+    a stage's range, and ran on the card between that stage's two stamp
+    kernels (the profiler's times of both).  The stamps the tracer read
+    lie within 50 microseconds of the profiler's times of the same
+    kernels, less one constant."""
+    dev = _need_gpu()
+    spans, events, _ = _profiled_frame(dev)
+    stages = [s for s in spans if s["parent"] == spans[0]["id"]]
+    assert spans[0]["name"] == "frame" and all(s["device"] is not None for s in stages)
+    names = {s["name"] for s in stages}
+    cpu = torch.autograd.DeviceType.CPU
+    ranges = [_event_ns(e) for e in events if e.device_type() == cpu and e.name() in names]
+    launches = {e.correlation_id(): _event_ns(e) for e in events
+                if e.device_type() == cpu and e.name().startswith("cu")}
+    # every range shows on the device too, under its span's name: not work
+    device = [e for e in events if e.device_type() != cpu and e.name() not in names | {"frame"}]
+    work = [e for e in device if "stamp_kernel" not in e.name()]
+    # the stages follow one another: their stamps, in launch order, open and
+    # close each stage in turn
+    stamps = [_event_ns(e)[0] for e in sorted((e for e in device if "stamp_kernel" in e.name()),
+                                             key=lambda e: e.correlation_id())]
+    ours = [t for _, t in sorted((q, t) for s in stages for q, t in zip(s["seq"], s["device"]))]
+    assert work and len(ranges) == len(stages) and len(stamps) == len(ours) == 2 * len(stages)
+    shift = [a - b for a, b in zip(stamps, ours)]
+    assert max(shift) - min(shift) <= 50_000, (min(shift), max(shift))
+    stamped = list(zip(stamps[0::2], stamps[1::2]))
+    for e in work:
+        launch = launches[e.correlation_id()]
+        assert any(a <= launch[0] and launch[1] <= b for a, b in ranges), e.name()
+        a, b = _event_ns(e)
+        assert any(c <= a and b <= d for c, d in stamped), (e.name(), a, b)
+
+
+@pytest.mark.cuda
+def test_span_host_times_match_the_profiler_ranges_on_gpu():
+    """The tracer's clock and the profiler's differ by a constant: CLOCK_REALTIME
+    less CLOCK_MONOTONIC (``profiler_offset_ns``), to within the profiler's
+    own conversion of its cycle counter to that clock.  With that constant
+    each stage span's host interval matches its record_function range
+    within 50 microseconds."""
+    from ics_tpu_torch.utils.trace import profiler_offset_ns
+
+    dev = _need_gpu()
+    spans, events, _ = _profiled_frame(dev)
+    cpu = torch.autograd.DeviceType.CPU
+    stages = [s for s in spans if s["parent"] == spans[0]["id"]]
+    pairs = []
+    for name in {s["name"] for s in stages}:
+        mine = [s["host"] for s in stages if s["name"] == name]
+        ranges = sorted(_event_ns(e) for e in events
+                        if e.device_type() == cpu and e.name() == name)
+        assert len(mine) == len(ranges), name
+        pairs += [(name, m, r) for m, r in zip(mine, ranges)]
+    offset = statistics.median(r[0] - m[0] for _, m, r in pairs)
+    assert abs(offset - profiler_offset_ns()) <= 1_000_000
+    for name, (a, b), (c, d) in pairs:
+        assert abs(a + offset - c) <= 50_000 and abs(b + offset - d) <= 50_000, (name, a, c)
+
+
+@pytest.mark.cuda
+def test_a_stamped_frame_on_gpu():
+    """deblur_module with Tracer(sync=False) on the WHILE path: every stage
+    and 'outer 1' stamped, each solve's spans under its solve stage, the
+    stamps in stream order rising, each span inside its parent on the card,
+    and the frame's bits those of an untraced frame."""
+    import numpy as np
+
+    from ics_tpu_torch.models.pipeline import deblur_module
+    from ics_tpu_torch.utils.trace import Tracer
+
+    dev = _need_gpu()
+    gen = torch.Generator().manual_seed(12)
+    frame = (torch.rand((96, 128, 3), generator=gen) * 255).to(torch.uint8).numpy()
+    kw = dict(mask_size=41, iterations=6, verbose=False, device=dev)
+    want = deblur_module(frame, "x", None, 5, **kw)
+    tracer = Tracer(sync=False)
+    got = deblur_module(frame, "x", None, 5, trace=tracer, **kw)
+    spans = tracer.collect()
+    assert np.array_equal(got, want) and not tracer.collect()
+    by_id = {s["id"]: s for s in spans}
+    whiles = [s for s in spans if s["name"] == "while"]
+    assert whiles and all(by_id[s["parent"]]["name"].startswith("solve (") for s in whiles)
+    for s in spans:
+        if s["name"] in ("frame", "capture", "build"):
+            assert s["device"] is None
+        else:
+            assert s["device"] is not None and s["device"][0] <= s["device"][1], s["name"]
+        parent = by_id.get(s["parent"])
+        if parent is not None and parent["device"] is not None and s["device"] is not None:
+            assert parent["device"][0] <= s["device"][0] <= s["device"][1] <= parent["device"][1]
+    ends = sorted((q, t) for s in spans if s["seq"] for q, t in zip(s["seq"], s["device"]))
+    assert all(a[1] <= b[1] for a, b in zip(ends, ends[1:]))
