@@ -26,7 +26,7 @@ Phases:
      split, K4 bf16, K4h f32-at-HIGHEST and K4d f32-at-DEFAULT tensor-core
      convs, K5 TV stencil, K6 bilateral filter, K7 the outer loop's stop;
      K7w, which hands K7's ``go`` to the WHILE node, by its effect: the node
-     runs outers - 1 bodies and leaves K7's twin's state)
+     runs outers - 1 bodies and leaves K7's twin's state; the banded resize)
      against its plain PyTorch twin on the card, at its path's
      shapes, with CUDA-event median times of both and of the one PyTorch
      call that computes the same function where there is one, taken in
@@ -56,7 +56,7 @@ Phases:
   5. the 24 MP case (bench.py's kwargs) in exact f32, the main path, then
      in precision 'high', in 'mixed', with use_tv, and with the 'pam' and
      'pd' solvers: the launch counters are zeroed just before each run;
-     K1-K3, K7 and K7w must be > 0 after the exact run, K4s after 'high',
+     K1-K3, K7, K7w and the resize must be > 0 after the exact run, K4s after 'high',
      K4 after 'mixed', K5 after use_tv, K1, K3 and K5 after 'pam' and K3
      after 'pd'; then SSIM of the 24 MP scene as CUDA tensors (the
      metrics' device path in bands, K1) against its float64 host path;
@@ -291,7 +291,7 @@ def _counters():
     the card, models/rl_mm.py::_settle_unread)."""
     from ics_tpu_torch.models import rl_mm
     from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
-                                   cuda_outer, cuda_solver, cuda_tv)
+                                   cuda_outer, cuda_resize, cuda_solver, cuda_tv)
 
     rl_mm._settle_unread()
     return {
@@ -300,17 +300,18 @@ def _counters():
         "K4": cuda_conv_mma.bf16_launches, "K4h": cuda_conv_mma.highest_launches,
         "K4d": cuda_conv_mma.default_launches, "K5": cuda_tv.launches,
         "K6": cuda_bilateral.launches, "K7": cuda_outer.launches,
-        "K7w": cuda_outer.while_launches,
+        "K7w": cuda_outer.while_launches, "resize": cuda_resize.launches,
     }
 
 
 def _zero_counters() -> None:
     from ics_tpu_torch.models import rl_mm
     from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
-                                   cuda_outer, cuda_solver, cuda_tv)
+                                   cuda_outer, cuda_resize, cuda_solver, cuda_tv)
 
     rl_mm._settle_unread()  # an earlier run's launches are not counted after the zero
-    for mod in (cuda_conv, cuda_solver, cuda_correlate, cuda_tv, cuda_bilateral, cuda_outer):
+    for mod in (cuda_conv, cuda_solver, cuda_correlate, cuda_tv, cuda_bilateral, cuda_outer,
+                cuda_resize):
         mod.launches = 0
     cuda_outer.while_launches = 0
     cuda_conv_mma.split_launches = cuda_conv_mma.bf16_launches = 0
@@ -389,7 +390,7 @@ def phase_pipelines(torch, dev):
     kw24 = bench.KW24
     launches, solver_launches = {}, {}
     for label, extra, names in [
-        ("exact", dict(precision="exact"), ("K1", "K2", "K3", "K7", "K7w")),
+        ("exact", dict(precision="exact"), ("K1", "K2", "K3", "K7", "K7w", "resize")),
         ("high", dict(precision="high"), ("K4s",)),
         ("mixed", dict(precision="mixed"), ("K4",)),
         ("use_tv collab", dict(precision="exact", use_tv=True, tv_norm="collab"), ("K5",)),
@@ -1930,6 +1931,9 @@ def main() -> int:
         # no TPU kernel: the lax.while_loop node, which K7w drives
         "K7w": ("ics_tpu_torch/csrc/graph_while.cu",
                 "none: the lax.while_loop node, ics_tpu/models/rl_mm.py:627"),
+        # no TPU kernel: jax.image.resize's dense weight matrices
+        "resize": ("ics_tpu_torch/csrc/resize.cu",
+                   "none: jax.image.resize, ics_tpu/utils/resize.py:51"),
     }
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -84,6 +84,9 @@ _SIGNATURES = {
     "ics_while_launch": [_P, _P],
     # graph, exec
     "ics_while_free": [_P, _P],
+    # src, dst, start, count, weights (ops/cuda_resize.py), outer, n_in, n_out, inner,
+    # stream
+    "ics_resample": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # driver (out), runtime (out)
     "ics_cuda_versions": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
 }

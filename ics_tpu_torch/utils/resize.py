@@ -8,12 +8,18 @@ a = -0.5; the triangle; Lanczos of radius 3 or 5) at half-pixel centers; on
 downscale the kernel is widened by 1/scale (antialiasing); each output's
 weights are renormalized to sum 1 (which drops the taps that fall outside
 the input); outputs whose sample point lies outside the input get weight 0.
-The matrices are built here the same way, with the same float32 sample
-positions, on the image's device (a 24 MP level's matrix holds 25 M
-entries), cached per shape and method, and applied as float32 matmuls with
-TF32 off.  ``'nearest'`` gathers, as ``jax._src.image.scale._resize_nearest``
-does, and keeps the dtype.  ``F.interpolate(mode="bicubic")`` uses another
-coefficient, edge rule and no antialiasing: it is not this function.
+``weight_matrix`` builds that matrix the same way, with the same float32
+sample positions, on the host (and copies it to the device it is given);
+``band_tables`` builds, by the same recipe, only the taps inside each
+output's support (a start, a count and the weights), which is all an axis of
+a 24 MP level needs of a matrix of 25 M entries.  ``resize_jax`` resizes each
+axis through ``ops.cuda_resize.resample``: a CUDA tensor takes the banded
+kernel (``csrc/resize.cu``; the tables cached per shape and method, uploaded
+once per device, no dense matrix on the card), a CPU tensor the dense twin,
+``weight_matrix``'s float32 product with TF32 off.
+``'nearest'`` gathers, as ``jax._src.image.scale._resize_nearest`` does, and
+keeps the dtype.  ``F.interpolate(mode="bicubic")`` uses another coefficient,
+edge rule and no antialiasing: it is not this function.
 
 ``resize`` is the host-side SciPy resize of ``resize_backend="scipy"``,
 copied from ics_tpu/utils/resize.py:26-48 (the port never imports
@@ -28,9 +34,7 @@ import numpy as np
 import torch
 from scipy import ndimage
 
-from ics_tpu_torch._device import exact_f32
-
-__all__ = ["resize", "resize_jax", "weight_matrix", "METHODS"]
+__all__ = ["resize", "resize_jax", "weight_matrix", "band_tables", "METHODS"]
 
 
 def resize(image: np.ndarray, shape, order: int = 3, mode: str = "edge") -> np.ndarray:
@@ -81,6 +85,8 @@ def _lanczos(radius: float, x: torch.Tensor) -> torch.Tensor:
 _KERNELS = {"linear": _triangle, "cubic": _keys_cubic,
             "lanczos3": functools.partial(_lanczos, 3.0),
             "lanczos5": functools.partial(_lanczos, 5.0)}
+# each kernel is 0 beyond this |x| (Lanczos reaches its radius itself)
+_RADIUS = {"linear": 1.0, "cubic": 2.0, "lanczos3": 3.0, "lanczos5": 5.0}
 _ALIASES = {"bilinear": "linear", "trilinear": "linear", "triangle": "linear",
             "bicubic": "cubic", "tricubic": "cubic"}
 METHODS = ("nearest", *_KERNELS, *_ALIASES)
@@ -92,25 +98,28 @@ def _method(method: str) -> str:
     return _ALIASES.get(method, method)
 
 
-@functools.lru_cache(maxsize=32)
-def weight_matrix(in_size: int, out_size: int, device: str = "cpu",
-                  method: str = "cubic") -> torch.Tensor:
-    """(in_size, out_size) float32 weights of one resized axis, for any
-    method but 'nearest'."""
-    kernel = _KERNELS[_method(method)]
-    f32 = torch.float32
+def _samples(in_size: int, out_size: int) -> tuple[float, torch.Tensor]:
+    """The kernel's scale and each output's float32 sample position."""
     # JAX: scale = out/in and inv_scale = 1/scale in double (Python floats),
     # rounded to float32 where they meet float32 arrays
     inv_scale = float(np.float32(1.0 / (out_size / in_size)))
-    kernel_scale = max(inv_scale, 1.0)
-    sample_f = (torch.arange(out_size, dtype=f32, device=device) + 0.5) * inv_scale - 0.5
-    x = torch.abs(
-        sample_f[None, :] - torch.arange(in_size, dtype=f32, device=device)[:, None]
-    ) / kernel_scale
+    sample_f = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    return max(inv_scale, 1.0), sample_f
+
+
+def _weights(kernel, taps: torch.Tensor, sample_f: torch.Tensor, kernel_scale: float,
+             in_size: int, valid: torch.Tensor | None = None) -> torch.Tensor:
+    """float32 weights of the float32 input positions ``taps`` (one row per
+    tap, one column per output; ``valid`` False where a row holds no tap of
+    that column): the kernel at their float32 distances, renormalized over
+    each column, 0 for an output sampled outside the input."""
+    x = torch.abs(sample_f[None, :] - taps) / kernel_scale
     # the kernel and its renormalization in float64, rounded once: JAX's
     # float32 rounding of them depends on the backend's FMA contraction, and
     # float64 lands within a few 1e-7 of each backend's result
     weights = kernel(x.double())
+    if valid is not None:
+        weights = torch.where(valid, weights, torch.zeros_like(weights))
     total = torch.sum(weights, dim=0, keepdim=True)
     weights = torch.where(
         torch.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
@@ -118,7 +127,61 @@ def weight_matrix(in_size: int, out_size: int, device: str = "cpu",
         torch.zeros_like(weights),
     )
     inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return torch.where(inside[None, :], weights, torch.zeros_like(weights)).to(f32)
+    return torch.where(inside[None, :], weights, torch.zeros_like(weights)).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def weight_matrix(in_size: int, out_size: int, device: str = "cpu",
+                  method: str = "cubic") -> torch.Tensor:
+    """(in_size, out_size) float32 weights of one resized axis, for any
+    method but 'nearest', on ``device``.  Built on the host: CUDA divides a
+    tensor by a Python scalar as a product with its reciprocal, which moves
+    some float32 distances of a downscale by an ulp."""
+    if torch.device(device).type != "cpu":
+        return weight_matrix(in_size, out_size, "cpu", method).to(device)
+    kernel_scale, sample_f = _samples(in_size, out_size)
+    taps = torch.arange(in_size, dtype=torch.float32)[:, None]
+    return _weights(_KERNELS[_method(method)], taps, sample_f, kernel_scale, in_size)
+
+
+@functools.lru_cache(maxsize=64)
+def band_tables(in_size: int, out_size: int,
+                method: str = "cubic") -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The non-zero band of each column of ``weight_matrix(in_size,
+    out_size, method=method)``, on the host: ``start`` and ``count``
+    ((out_size,) int32) and the weights ((taps, out_size) float32, tap-major,
+    zero past each column's count), taps the widest column's count.
+
+    The same recipe restricted to a window that holds each output's kernel
+    support (the same float32 positions and distances, the kernel and the
+    renormalization in float64, rounded once): only the float64 sum's order
+    differs from the dense matrix's, which moves a weight by at most 1 ulp.
+    An output sampled outside the input has an empty band (count 0); zeros
+    inside a band stay in it."""
+    kernel_scale, sample_f = _samples(in_size, out_size)
+    return _bands(_method(method), in_size, sample_f, kernel_scale)
+
+
+def _bands(name: str, in_size: int, sample_f: torch.Tensor, kernel_scale: float):
+    """``band_tables`` of the sample positions ``sample_f``."""
+    reach = _RADIUS[name] * kernel_scale
+    first = torch.clamp(torch.floor(sample_f.double() - reach).long() - 1, 0, in_size - 1)
+    last = torch.clamp(torch.ceil(sample_f.double() + reach).long() + 1, 0, in_size - 1)
+    window = first[None, :] + torch.arange(int((last - first).max()) + 1)[:, None]
+    weights = _weights(_KERNELS[name], window.to(torch.float32), sample_f, kernel_scale, in_size,
+                       valid=window <= last[None, :])
+    nonzero = weights != 0
+    lead = nonzero.int().argmax(dim=0)  # the first non-zero tap (0 when none)
+    count = torch.where(nonzero.any(dim=0),
+                        nonzero.shape[0] - nonzero.flip(0).int().argmax(dim=0) - lead,
+                        torch.zeros_like(lead))
+    taps = max(int(count.max()), 1)
+    t = torch.arange(taps)[:, None]
+    at = torch.clamp(lead[None, :] + t, max=weights.shape[0] - 1)
+    band = torch.where(t < count[None, :], weights.gather(0, at),
+                       torch.zeros((), dtype=torch.float32))
+    start = torch.where(count > 0, first + lead, torch.zeros_like(first))
+    return start.int(), count.int(), band.contiguous()
 
 
 def _nearest(image: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -140,20 +203,21 @@ def resize_jax(image: torch.Tensor, shape, method: str = "cubic") -> torch.Tenso
 
     Axes whose size does not change are left as they are (JAX skips them
     too), so a same-size call returns ``image`` itself.  Every method but
-    'nearest' computes in float32.
+    'nearest' computes in float32: the rows first, then the columns, each by
+    ``ops.cuda_resize.resample`` (the banded kernel on a CUDA tensor, the
+    dense twin on a CPU one).
     """
+    from ics_tpu_torch.ops import cuda_resize  # it imports this module's tables
+
     out_h, out_w = int(shape[0]), int(shape[1])
     if _method(method) == "nearest":
         return _nearest(image, out_h, out_w)
-    exact_f32()
     in_h, in_w = image.shape[0], image.shape[1]
-    dev = str(image.device)
     out = image.to(torch.float32)
+    if out.is_cuda and (in_h, in_w) != (out_h, out_w):
+        out = out.contiguous()  # the kernel reads whole rows
     if in_h != out_h:
-        wh = weight_matrix(in_h, out_h, dev, method)
-        rest = out.shape[1:]
-        out = (wh.T @ out.reshape(in_h, -1)).reshape(out_h, *rest)
+        out = cuda_resize.resample(out, 0, out_h, method)
     if in_w != out_w:
-        ww = weight_matrix(in_w, out_w, dev, method)
-        out = (out.movedim(1, -1) @ ww).movedim(-1, 1).contiguous()
+        out = cuda_resize.resample(out, 1, out_w, method)
     return out

@@ -1,7 +1,7 @@
 """On-card certification and microbenchmarks of the port's CUDA kernels, and
 the blind-restoration batteries (counterpart of ics_tpu/utils/selftest.py).
 
-``certify_kernels`` holds every hand-written kernel (K1-K7, K7w) against
+``certify_kernels`` holds every hand-written kernel (K1-K7, K7w, the resize) against
 its plain PyTorch twin on the GPU at the shapes of the 24 MP path, then the K2
 inner loop against the op loop on one blind solve, then the pipeline's
 pre- and postprocess and cubic resize against the same steps done one
@@ -184,6 +184,10 @@ LIB_TOL = 1e-3  # the library call against the twin: cuDNN picks its own algorit
 # largest value on an H100) and below K4s's bf16x3 on the same twin, so a
 # kernel that drops HIGHEST's extra products fails
 HIGHEST_TOL = 7e-7
+# the banded resize against its dense twin: the same float32 weights and an
+# fmaf chain over the same non-zero terms, which cuBLAS's row pass sums in
+# another order (2 ulps apart at most at values just above 1)
+RESIZE_TOL = 2.5e-7
 
 
 class _Fault(Exception):
@@ -755,6 +759,55 @@ class _Certify:
             graph.reset()
         return node_ms / n, host_ms / n
 
+    def resize(self):
+        """The banded resize kernel against its dense twin at the 24 MP
+        frame's widest band (the 0.354 level's downscale of the frame) and
+        at its largest output (the final level's upscale of the estimate),
+        each pass on the twin's input, within RESIZE_TOL of the largest
+        value; the two passes of each resize timed together."""
+        from ics_tpu_torch.ops import cuda_resize
+        from ics_tpu_torch.utils.resize import band_tables
+
+        torch, worst = self.torch, 0.0
+        for label, shape, out in [("24MP 0.354 downscale", (4003, 6003, 3), (1415, 2123)),
+                                  ("24MP 1.0 upscale", (2829, 4245, 3), (4003, 6003))]:
+            x = self.rand(shape)
+            nbytes = ops = 0
+            y = x
+            for axis, n in enumerate(out):
+                got, again = _twice(torch, f"resize {label} axis {axis}",
+                                    lambda: cuda_resize.resample(y, axis, n))
+                ref = cuda_resize.resample_plain(y, axis, n)
+                err, rel = _rel(torch, got, ref)
+                self.report(f"resize {label} axis {axis} {tuple(y.shape)} -> {n}: max_abs_err "
+                            f"{err:.3e} rel {rel:.3e} (bitwise equal to twin: "
+                            f"{torch.equal(got, ref)})")
+                self.check(rel <= RESIZE_TOL,
+                           f"resize {label} axis {axis} within {RESIZE_TOL:g} of its twin")
+                self.check(torch.equal(got, again),
+                           f"resize {label} axis {axis} bitwise reproducible")
+                worst = max(worst, err)
+                # each pass reads its input and writes its output once; 2 flops a tap
+                nbytes += 4 * (y.numel() + ref.numel())
+                taps = int(band_tables(y.shape[axis], n)[1].sum())
+                ops += 2 * taps * (y.numel() // y.shape[axis])
+                y = ref
+                del got, again
+            ms, plain_ms, _, dev_ms = _time_turns(
+                torch, lambda: cuda_resize.resample(cuda_resize.resample(x, 0, out[0]), 1, out[1]),
+                lambda: cuda_resize.resample_plain(cuda_resize.resample_plain(x, 0, out[0]), 1,
+                                                   out[1]), None, 10)
+            bound = _bound(nbytes, ops, "f32")
+            self.report(f"resize {label} {shape} -> {out}: kernel {ms:.4f} ms (device "
+                        f"{dev_ms:.4f}), dense twin {plain_ms:.4f} ms, bound "
+                        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                        f"{100 * bound['bound_ms'] / dev_ms:.1f} % of it by device time")
+            if "upscale" in label:
+                self.rows["resize"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                           library_ms=None, **bound)
+            del x, y
+        self.rows.setdefault("resize", {})["max_abs_err"] = worst
+
     def inner_loop_routes(self):
         """The K2 inner loop (``inner_loop='pallas'``) against the op loop
         (``'xla'``, K1 and K3) on one 255^2 blind solve of 3 outers: u
@@ -831,7 +884,7 @@ def certify_kernels(report=print, device="cuda", rows: dict | None = None) -> bo
     check = _Checks(report)
     cert = _Certify(torch, dev, check, report, {} if rows is None else rows)
     for section in (cert.k1, cert.k2, cert.k3, cert.k4, cert.k5, cert.k6, cert.k7, cert.k7w,
-                    cert.inner_loop_routes, cert.glue):
+                    cert.resize, cert.inner_loop_routes, cert.glue):
         try:
             section()
         except _Fault as exc:

@@ -688,8 +688,8 @@ def test_solver_conv_method_routes_on_gpu(method, precision, want, not_want):
 @pytest.mark.cuda
 def test_certify_kernels_passes_on_gpu():
     """utils.selftest.certify_kernels: K1-K6 at the 24 MP shapes, K7 and
-    K7w, the K2 inner loop against the op loop, the glue against one op at
-    a time."""
+    K7w, the banded resize, the K2 inner loop against the op loop, the glue
+    against one op at a time."""
     from ics_tpu_torch.utils.selftest import certify_kernels
 
     _need_gpu()
@@ -698,7 +698,8 @@ def test_certify_kernels_passes_on_gpu():
         line for line in lines if "FAIL" in line or "ERROR" in line)
     assert lines[-1].split(": ")[-1].endswith("checks passed")
     keys = {"ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err"}
-    assert set(rows) == {"K1", "K2", "K3", "K4s", "K4", "K4h", "K4d", "K5", "K6", "K7", "K7w"}
+    assert set(rows) == {"K1", "K2", "K3", "K4s", "K4", "K4h", "K4d", "K5", "K6", "K7", "K7w",
+                         "resize"}
     assert all(set(row) == keys for row in rows.values())
     # the library calls timed beside K1, K3, K4h and K4d are held against
     # the twins
@@ -1189,3 +1190,102 @@ def test_a_stamped_frame_on_gpu():
             assert parent["device"][0] <= s["device"][0] <= s["device"][1] <= parent["device"][1]
     ends = sorted((q, t) for s in spans if s["seq"] for q, t in zip(s["seq"], s["device"]))
     assert all(a[1] <= b[1] for a, b in zip(ends, ends[1:]))
+
+
+# the banded resize (csrc/resize.cu) against its dense twin on the card: the
+# same float32 weights, an fmaf chain over the same non-zero terms.  cuBLAS
+# sums a column pass in the kernel's order (bitwise equal at every pipeline
+# shape) but a row pass in its own: two float32 sums of the same terms lie up
+# to 2 ulps apart at values just above 1 (2.27e-7 of the largest value on an
+# H100; each as far from the float64 sum rounded once), hence 2.5e-7
+RESIZE_TOL = 2.5e-7
+
+
+def _resize_pass_case(dev, shape, axis, n, method="cubic"):
+    """One pass by the kernel against the twin on the same input, within
+    RESIZE_TOL of the twin's largest value; one launch, none by the twin;
+    bitwise equal on a second run."""
+    from ics_tpu_torch.ops import cuda_resize
+
+    gen = torch.Generator().manual_seed(shape[0] * 7919 + shape[1] * 31 + n + axis)
+    x = torch.rand(shape, generator=gen).to(dev)
+    before = cuda_resize.launches
+    got = cuda_resize.resample(x, axis, n, method)
+    assert cuda_resize.launches == before + 1
+    ref = cuda_resize.resample_plain(x, axis, n, method)
+    assert cuda_resize.launches == before + 1
+    assert got.shape == ref.shape and got.is_contiguous()
+    assert float((got - ref).abs().max()) <= RESIZE_TOL * float(ref.abs().max())
+    assert torch.equal(got, cuda_resize.resample(x, axis, n, method))
+
+
+def _resize_passes():
+    from resize_cases import CELLS, passes
+
+    return [(cell, *p) for cell in sorted(CELLS) for p in passes(*CELLS[cell])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,shape,axis,n", _resize_passes())
+def test_resize_kernel_at_the_pipelines_passes_on_gpu(cell, shape, axis, n):
+    """Every pass of a frame of each cell: the frame and the estimate to
+    each level (14 passes at 24 MP, 10 at 1.9 MP, which the non-blind levels
+    run again) and the PSF's."""
+    _resize_pass_case(_need_gpu(), shape, axis, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["linear", "bilinear", "trilinear", "triangle", "cubic",
+                                    "bicubic", "tricubic", "lanczos3", "lanczos5"])
+@pytest.mark.parametrize("shape,axis,n", [
+    ((37, 41), 0, 61), ((37, 41), 1, 23),  # 2-D: an upscale, a downscale
+    ((29, 33, 3), 0, 17), ((29, 33, 3), 1, 70), ((9, 9, 3), 0, 7), ((7, 9, 3), 1, 7),
+    ((1, 5, 3), 1, 9), ((300, 7, 2), 0, 17),  # one row; a band of 100 taps
+])
+def test_resize_kernel_every_method_on_gpu(method, shape, axis, n):
+    _resize_pass_case(_need_gpu(), shape, axis, n, method)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,out,passes", [
+    ((2829, 4245, 3), (4003, 6003), 2), ((9, 9, 3), (7, 7), 2),
+    ((37, 41, 3), (37, 80), 1), ((37, 41), (20, 41), 1), ((37, 41, 3), (37, 41), 0),
+])
+def test_resize_jax_launches_one_kernel_a_pass_on_gpu(shape, out, passes):
+    """``resize_jax`` on the card: one launch per resized axis (a same-size
+    axis takes none, a same-size call returns its input) and the twin's
+    passes within RESIZE_TOL; a non-contiguous input is copied first."""
+    from ics_tpu_torch.ops import cuda_resize
+    from ics_tpu_torch.utils.resize import resize_jax
+
+    dev = _need_gpu()
+    x = torch.rand((shape[0] + 2, shape[1] + 2, *shape[2:]), device=dev)[1:-1, 1:-1]
+    before = cuda_resize.launches
+    got = resize_jax(x, out)
+    assert cuda_resize.launches == before + passes
+    want = x
+    for axis in (0, 1):
+        if want.shape[axis] != out[axis]:
+            want = cuda_resize.resample_plain(want, axis, out[axis])
+    assert got.shape == want.shape == (*out, *shape[2:])
+    assert float((got - want).abs().max()) <= RESIZE_TOL * float(want.abs().max())
+    if passes == 0:
+        y = x.contiguous()
+        assert resize_jax(y, out) is y
+
+
+@pytest.mark.cuda
+def test_resize_kernel_refuses_what_it_does_not_take_on_gpu():
+    from ics_tpu_torch.ops import cuda_resize
+
+    dev = _need_gpu()
+    x = torch.rand((20, 30, 3), device=dev)
+    before = cuda_resize.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_resize.resample(x.transpose(0, 1), 0, 11)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_resize.resample(x[:, ::2], 1, 11)
+    for dtype in (torch.float64, torch.bfloat16):
+        with pytest.raises(TypeError):
+            cuda_resize.resample(x.to(dtype), 0, 11)
+    assert cuda_resize.launches == before
