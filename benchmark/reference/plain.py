@@ -10,8 +10,9 @@ are cuDNN's grouped ``conv2d``, the cubic resize is ``jax.image.resize``'s
 matrices, and the residual-whiteness metric is computed in float64.
 
 ``run`` drives the whole frame: preprocessing, the sqrt(2) pyramid, the
-blind mask-window solves that estimate the PSF, the non-blind full-frame
-solves and the 16-bit codes.  With ``follow`` (the program's per-level
+blind mask-window solves that estimate the PSF (or a stored PSF read from
+its file, in their place), the non-blind full-frame solves and the 16-bit
+codes.  With ``follow`` (the program's per-level
 records) each level runs as many outers as the program ran there, and
 nothing else of the program's: every level starts from the reference's own
 previous level and PSF, and its output is compared with the program's
@@ -38,9 +39,28 @@ QUALITY_STEP = {"normal": 1e-3, "high": 5e-4, "veryhigh": 1e-4, "low": 5e-3}
 # psf_gap: each level's output and each blind level's PSF; stop_gap: the stops
 # of every level but the last, last_stop_gap: the last level's; codes_gap: the
 # 16-bit frame; post_gap: the program's codes against this postprocess of the
-# program's own last level (exact)
+# program's own last level (exact); coarse_u_gap, coarse_stop_gap: u_gap and
+# stop_gap of the levels at scale COARSE or below alone, which come before the
+# larger levels' solves amplify rounding; fine_hp_gap: of each level above
+# COARSE, the root-mean-square of its gap less the gap's box mean over
+# HIGH_PASS x HIGH_PASS pixels, over the reference's (the rounding that those
+# levels amplify moves the frame's lowest frequencies, which the mean takes out)
 NUMBERS = ("resize_gap", "u_gap", "psf_gap", "stop_gap", "last_stop_gap", "codes_gap",
-           "post_gap")
+           "post_gap", "coarse_u_gap", "coarse_stop_gap", "fine_hp_gap")
+COARSE = 0.5
+HIGH_PASS = 3
+# deblur_module's kwargs that this reference implements
+IMPLEMENTED = ("blur_width", "confidence", "tolerance", "quality", "bits", "mask", "mask_size",
+               "iterations", "psf_path")
+# kwargs that choose a route or an output and leave the maths as they are
+ROUTES = ("display", "inner_loop", "save_psf_path")
+# kwargs that change the maths, each at the one value this reference runs (p, norm,
+# order and priority are the port's vestigial RLConfig fields, held all the same);
+# any other kwarg, resize_backend among them, is refused whatever its value
+FIXED = {"solver": "mm", "precision": "exact", "blur": "static", "preview": False,
+         "use_tv": False, "tv_norm": "channel", "nonblind_levels": "all", "blind_budget": None,
+         "early_stop": 0.0, "refocus": False, "config": None, "p": 1, "norm": 1, "order": 2,
+         "priority": 0}
 
 
 @contextlib.contextmanager
@@ -226,6 +246,26 @@ def _gap(a: torch.Tensor, ref: torch.Tensor) -> float:
     return float((a - ref).abs().max() / ref.abs().max())
 
 
+def _box(x: torch.Tensor, width: int) -> torch.Tensor:
+    """The mean of (H, W, C) ``x`` over a ``width`` x ``width`` box around
+    each pixel, edges replicated."""
+    r = width // 2
+    y = F.pad(x.permute(2, 0, 1)[None], (r, r, r, r), mode="replicate")[0]
+    for axis in (1, 2):
+        c = F.pad(torch.cumsum(y, axis), (1, 0) if axis == 2 else (0, 0, 1, 0))
+        y = (c.narrow(axis, width, c.shape[axis] - width)
+             - c.narrow(axis, 0, c.shape[axis] - width)) / width
+    return y.permute(1, 2, 0)
+
+
+def _high_pass_gap(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """The root-mean-square of the gap less its box mean (``HIGH_PASS``),
+    over the reference's, in float64."""
+    d = (a.to(ref.device, torch.float32) - ref).double()
+    d = d - _box(d, HIGH_PASS)
+    return float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(ref.double()))
+
+
 def _stop_gap(rec: dict, mrs: list, tau: float, iterations: int) -> float:
     """How far the program's stop at this level disagrees with the
     reference's whiteness trajectory over the same outers, in units of the
@@ -266,7 +306,11 @@ def run(raw: np.ndarray, kw: dict, device, *, follow=None, tf32=False, program_c
         detail: list | None = None):
     """The whole frame ``raw`` (H, W, 3 integers) deblurred with
     ``deblur_module``'s kwargs ``kw`` (blur_width, mask, mask_size,
-    tolerance, quality, iterations, confidence, bits; blind, static blur).
+    tolerance, quality, iterations, confidence, bits; blind, static blur;
+    with ``psf_path`` the stored PSF of that checkpoint file, its width the
+    blur's, and the non-blind levels only).  A kwarg whose maths it lacks
+    raises a ``ValueError`` that names it (``IMPLEMENTED``, ``ROUTES``,
+    ``FIXED``).
 
     Without ``follow``: returns (codes, records), the reference's own run,
     one record per level (case, scale, outers, converged, m_r, u: the
@@ -290,12 +334,30 @@ def _where(a: torch.Tensor, ref: torch.Tensor) -> dict:
                 at=[int(x) for x in at], program=float(a[at]), reference=float(ref[at]))
 
 
+def _guard(kw: dict) -> None:
+    """Refuse, by name, every kwarg whose maths this reference lacks."""
+    for key, value in kw.items():
+        if key in FIXED:
+            if value != FIXED[key]:
+                raise ValueError(f"the reference runs {key}={FIXED[key]!r}, not {value!r}")
+        elif key not in IMPLEMENTED and key not in ROUTES:
+            raise ValueError(f"the reference does not implement the kwarg {key}={value!r}")
+
+
+def stored_psf(path) -> np.ndarray:
+    """The (k, k, 3) float32 PSF of a checkpoint file (key ``psf``)."""
+    with np.load(path, allow_pickle=False) as z:
+        psf = np.asarray(z["psf"], np.float32)
+    if psf.ndim != 3 or psf.shape[0] != psf.shape[1] or psf.shape[2] != 3:
+        raise ValueError(f"stored PSF has shape {psf.shape}; expected (k, k, 3)")
+    return psf
+
+
 def _run(raw, kw, dev, follow, program_codes, detail):
-    for key, want in (("solver", "mm"), ("precision", "exact"), ("blur", "static")):
-        if kw.get(key, want) != want:
-            raise ValueError(f"the reference runs {key}={want!r}, not {kw[key]!r}")
+    _guard(kw)
     bits = kw.get("bits", 8)
-    blur = kw["blur_width"]
+    stored = stored_psf(kw["psf_path"]) if kw.get("psf_path") is not None else None
+    blur = kw["blur_width"] if stored is None else stored.shape[0]
     mask_size = kw.get("mask_size", 255)
     iterations = kw.get("iterations", 200)
     step = QUALITY_STEP[kw.get("quality", "normal")]
@@ -313,11 +375,14 @@ def _run(raw, kw, dev, follow, program_codes, detail):
     odd_rows, odd_cols = rows % 2 == 0, cols % 2 == 0
     pic = _edge(pic, int(odd_rows), 0, int(odd_cols), 0)
 
-    psf = torch.full((blur, blur, 3), 1.0 / blur**2, dtype=torch.float32, device=dev)
+    if stored is None:
+        psf = torch.full((blur, blur, 3), 1.0 / blur**2, dtype=torch.float32, device=dev)
+    else:  # a stored PSF: the blind phase is skipped
+        psf = torch.from_numpy(stored).to(dev)
     scales, sizes = pyramid(blur)
     numbers = dict.fromkeys(NUMBERS, 0.0)
     records, li, last = [], 0, None
-    for case in ("blind", "non-blind"):
+    for case in ("blind", "non-blind") if stored is None else ("non-blind",):
         blind = case == "blind"
         deblured = pic
         for scale, k in zip(reversed(scales), reversed(sizes)):
@@ -375,6 +440,10 @@ def _run(raw, kw, dev, follow, program_codes, detail):
                 if blind:
                     level.update(resize_gap=_gap(rec["image"], img),
                                  psf_gap=_gap(rec["psf"], own["psf"]))
+                if scale <= COARSE:
+                    level.update(coarse_u_gap=level["u_gap"], coarse_stop_gap=level[stop])
+                else:
+                    level.update(fine_hp_gap=_high_pass_gap(rec["u"], u))
                 for key, value in level.items():
                     numbers[key] = max(numbers[key], value)
                 if detail is not None:

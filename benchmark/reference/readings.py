@@ -4,15 +4,15 @@ size, in one process on the GPU:
     python3 -m benchmark.reference.readings --workload cam24-exact.blind \
         --scenes 12 --control 3
 
-The lower readings: the program (``deblur_module`` with the cell's kwargs)
-on the traffic mix's scenes, the pool's first and then further seeds of the
-same generator, each frame held against the reference level by level as a
-benchmark run holds it.  The upper readings: the control, the reference
-itself in the program's place computed with TF32 on (the nearest precision
-below the configuration's float32 with TF32 off), left to make its own
-stops, then held against the reference in float32 the same way.  Prints
-one JSON line per frame, with each level's numbers, and a summary line;
-the benchmark's runs do not run this.
+The lower readings: the program (``deblur_module`` with the cell's kwargs,
+the mix's set-up run first) on the traffic mix's scenes, the pool's first
+and then further seeds of the same generator, each frame held against the
+configuration's reference level by level as a benchmark run holds it.  The
+upper readings: the control, the reference itself in the program's place
+computed with TF32 on (the nearest precision below the configuration's
+float32 with TF32 off), left to make its own stops, then held against the
+reference in float32 the same way.  Prints one JSON line per frame, with
+each level's numbers, and a summary line; the benchmark's runs do not run this.
 """
 
 from __future__ import annotations
@@ -27,28 +27,27 @@ from pathlib import Path
 import torch
 
 from benchmark import scenes
-from benchmark.reference import plain
 from benchmark.run import Cell, _Levels, _program
 
 
 def program_numbers(cell: Cell, frame, dev, detail: list | None = None) -> dict:
     deblur = _program()[0]
-    kw = dict(cell.config["kwargs"], verbose=False, device=str(dev))
     levels = _Levels(keep=True)
     with contextlib.redirect_stdout(sys.stderr):
-        got = deblur(frame, "frame", None, stats_out=levels, **kw)
+        got = deblur(frame, "frame", None, stats_out=levels, **cell.kwargs(dev))
     records = levels.records()
     del levels
-    return plain.run(frame, cell.config["kwargs"], dev, follow=records, program_codes=got,
-                     detail=detail)
+    return cell.reference.run(frame, cell.kwargs(), dev, follow=records, program_codes=got,
+                              detail=detail)
 
 
 def control_numbers(cell: Cell, frame, dev, detail: list | None = None) -> dict:
-    codes, records = plain.run(frame, cell.config["kwargs"], dev, tf32=True)
+    reference = cell.reference
+    codes, records = reference.run(frame, cell.kwargs(), dev, tf32=True)
     records = [{**r, "u": r["u"].cpu(), "psf": None if r["psf"] is None else r["psf"].cpu(),
                 "image": None if r["image"] is None else r["image"].cpu()} for r in records]
-    return plain.run(frame, cell.config["kwargs"], dev, follow=records, program_codes=codes,
-                     detail=detail)
+    return reference.run(frame, cell.kwargs(), dev, follow=records, program_codes=codes,
+                         detail=detail)
 
 
 def main(argv=None) -> int:
@@ -59,6 +58,7 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     cell = Cell(args.workload, Path(__file__).resolve().parents[2])
+    cell.set_up()
     dev = torch.device(args.device)
     h, w, _ = cell.config["frame"]
     mix = cell.mix

@@ -2,24 +2,26 @@
 
     python3 -m benchmark.run --workload cam24-exact.blind --seed 7 --seconds 40 --trace 0
 
-Set-up makes the traffic mix's pool of frames on the card, loads the
-port's kernels (built into ``ics_tpu_torch/_build/`` at a checkout's first
-run) and deblurs the mix's warm-up frames.  The window then sends one raw
+Set-up makes the traffic mix's pool of frames on the card, runs the mix's
+own set-up where it has one (``traffic/<mix>.py``), loads the port's
+kernels (built into ``ics_tpu_torch/_build/`` at a checkout's first run)
+and deblurs the mix's warm-up frames.  The window then sends one raw
 8-bit frame at a time to ``ics_tpu_torch.models.pipeline.deblur_module``,
 the next when the last has come back as a 16-bit array on the host, until
 ``--seconds`` have passed; a frame begun before then finishes and counts.
-With ``--trace 1`` every frame of the window runs with stage spans, and
-then the pool's first scene runs once more unprofiled and once under
-torch.profiler.
+With ``--trace 1`` every frame of the window runs with stage spans; then
+the pool runs in the stamped pass (``stamped.py``), and its first scene
+once more unprofiled and once under torch.profiler.
 
 Once the window has closed, frames drawn from the seed are held against the
-plain reference (``reference/plain.py``), and the numbers compared are
-printed beside their limits: last on standard error, and last in the
-result, the last line of standard output.  A checked frame's levels are
-copied to the host as each level ends; those copies, and the reading of
-each frame's stats and solve log, are timed apart and left out of the
-window and of the frame's wall.  Without a CUDA device, or with
-JAX loaded, the run exits 1 and prints no result.
+configuration's plain reference (``reference/plain.py`` unless it names
+another), and the numbers compared are printed beside their limits: last
+on standard error, and last in the result, the last line of standard
+output.  A checked frame's levels are copied to the host as each level
+ends; those copies, and the reading of each frame's stats and solve log,
+are timed apart and left out of the window and of the frame's wall.
+Without a CUDA device, or with JAX loaded, the run exits 1 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -29,13 +31,16 @@ import time
 _START = time.time()  # the process's start, as near as the interpreter sees it
 
 import argparse  # noqa: E402
+import atexit  # noqa: E402
 import contextlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import random  # noqa: E402
+import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+import tempfile  # noqa: E402
 import traceback  # noqa: E402
 from pathlib import Path  # noqa: E402
 
@@ -61,7 +66,14 @@ def _load(path: Path):
 
 class Cell:
     """A workload of ``BENCHMARK.json`` with its configuration, traffic mix,
-    metrics and kernel counts, each found by name under ``benchmark/``."""
+    plain reference, limits, metrics and kernel counts, each found by name
+    under ``benchmark/``: the reference is ``reference/<name>.py`` for the
+    configuration's ``"reference"`` key (``plain`` without one); a mix
+    ``traffic/<mix>.json`` may have a set-up ``traffic/<mix>.py`` beside it,
+    whose ``prepare(cell, directory)`` returns kwargs that every frame adds
+    to the configuration's (``set_up``); the limits are the configuration's,
+    with ``cells/<cell>.json``'s ``"limits"`` over them key by key where the
+    cell has that file (a null there: the number is not compared)."""
 
     def __init__(self, name: str, root: Path):
         bench = json.loads((root / "BENCHMARK.json").read_text())
@@ -72,13 +84,41 @@ class Cell:
         configs = {c["name"]: c for c in bench["configs"]}
         self.config = json.loads((root / configs[cells[name]["config"]]["file"]).read_text())
         here = root / "benchmark"
-        self.mix = json.loads((here / "traffic" / f"{cells[name]['traffic']}.json").read_text())
+        traffic = here / "traffic" / cells[name]["traffic"]
+        self.mix = json.loads(traffic.with_suffix(".json").read_text())
+        prepare = traffic.with_suffix(".py")
+        self._prepare = _load(prepare).prepare if prepare.is_file() else None
+        self.added: dict | None = None if self._prepare else {}
+        reference = self.config.get("reference", "plain")
+        self.reference = _load(here / "reference" / f"{reference}.py")
+        own = here / "cells" / f"{name}.json"
+        own = json.loads(own.read_text())["limits"] if own.is_file() else {}
+        self.limits = {k: v for k, v in dict(self.config["limits"], **own).items()
+                       if v is not None}
         mine = lambda m: name in m.get("workloads", [name])
         self.end_to_end = [(m, _load(here / "end_to_end" / f"{m['name']}.py"))
                            for m in bench["end_to_end"] if mine(m)]
         self.per_layer = [(m, _load(here / "metrics" / f"{m['name']}.py"))
                           for m in bench["per_layer"] if mine(m)]
         self.kernels = {p.stem: _load(p) for p in sorted((here / "kernels").glob("*.py"))}
+
+    def set_up(self) -> dict:
+        """Run the mix's set-up once, in a directory of its own under
+        ``TMPDIR`` that is removed at exit; returns the kwargs it added."""
+        if self.added is None:
+            directory = tempfile.mkdtemp(prefix="bench-mix-")
+            atexit.register(shutil.rmtree, directory, True)
+            self.added = dict(self._prepare(self, Path(directory)))
+        return self.added
+
+    def kwargs(self, device=None) -> dict:
+        """A frame's kwargs: the configuration's with what the mix's set-up
+        added, as the reference takes them; with ``device``, as the program
+        does (``verbose=False`` and the device added)."""
+        if self.added is None:
+            raise RuntimeError(f"{self.name}: the mix's set-up has not run (Cell.set_up)")
+        kw = dict(self.config["kwargs"], **self.added)
+        return kw if device is None else dict(kw, verbose=False, device=str(device))
 
 
 def _stages(tracer_type, timed: bool):
@@ -201,19 +241,21 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
     returns the result's fields and the record the metric readers read."""
     import torch
 
-    from benchmark import scenes
-    from benchmark.reference import plain
+    from benchmark import scenes, stamped
 
     dev = torch.device(device)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
     deblur, tracer_type, loop_log = _program()
     h, w, _ = cell.config["frame"]
-    kw = dict(cell.config["kwargs"], verbose=False, device=str(dev))
     mix = cell.mix
     t_pool = time.time()
-    frames = scenes.pool(h, w, kw["blur_width"], mix["scene_seeds"][:mix["pool"]], dev,
-                         noise=mix["noise"], blocks=mix["blocks"])
+    frames = scenes.pool(h, w, cell.config["kwargs"]["blur_width"],
+                         mix["scene_seeds"][:mix["pool"]], dev, noise=mix["noise"],
+                         blocks=mix["blocks"])
     order, check = _plan(cell, seed)
+    t_mix = time.time()
+    cell.set_up()
+    kw = cell.kwargs(dev)
     t_warm = time.time()
     for _ in range(mix["warm_frames"]):
         deblur(frames[0], "frame", None, **kw)
@@ -222,8 +264,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
     start = start if start is not None else _START
     record = dict(setup_s=t_end - start, frames=[])
     print(f"set-up {t_end - start:.3f} s: to the pool {t_pool - start:.3f} s (imports, the "
-          f"card's context), the pool {t_warm - t_pool:.3f} s, the warm frames "
-          f"{t_end - t_warm:.3f} s (the kernels' library loaded or built)", file=sys.stderr)
+          f"card's context), the pool {t_mix - t_pool:.3f} s, the mix's set-up "
+          f"{t_warm - t_mix:.3f} s, the warm frames {t_end - t_warm:.3f} s (the kernels' "
+          f"library loaded or built)", file=sys.stderr)
 
     kept, failed, out, levels = {}, 0, None, None
     # held: the window's seconds that serve the check and the record, not
@@ -262,25 +305,27 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
     record["memory_reserved_peak_bytes"] = (torch.cuda.max_memory_reserved(dev)
                                             if dev.type == "cuda" else None)
 
-    if trace:
+    if trace:  # the stamped pass (a pool's pass on the CPU), then the profiled frame
+        record["stamped"] = stamped.run_pass(
+            cell, dev, stamped.SECONDS if dev.type == "cuda" else 0.0, pool=frames)
         record["profile"] = _profile(cell, deblur, tracer_type, frames[0], kw, dev, sync)
 
     loaded = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
     if loaded:
         raise RuntimeError(f"modules loaded in the benchmark's process: {loaded}")
 
-    numbers = dict.fromkeys(plain.NUMBERS, 0.0)
+    numbers = dict.fromkeys(cell.reference.NUMBERS, 0.0)
     del out, levels
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     for i, (scene, got, records) in sorted(kept.items()):
         t = time.perf_counter()
-        found = plain.run(frames[scene], cell.config["kwargs"], dev, follow=records,
-                          program_codes=got)
+        found = cell.reference.run(frames[scene], cell.kwargs(), dev, follow=records,
+                                   program_codes=got)
         numbers = {k: max(numbers[k], v) for k, v in found.items()}
         print(f"checked frame {i} (scene {scene}, {sum(r['outers'] for r in records)} outers) "
               f"in {time.perf_counter() - t:.1f} s: {json.dumps(found)}", file=sys.stderr)
-    limits = cell.config["limits"]
+    limits = cell.limits
     checks = {k: dict(value=numbers[k], limit=limits[k]) for k in limits}
     correct = (bool(kept) and failed == 0
                and all(c["value"] <= c["limit"] for c in checks.values()))

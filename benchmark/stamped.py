@@ -10,14 +10,11 @@ the host's clock (``ics_tpu_torch/utils/trace.py``).  The frames run as the
 window's do, the solves on the WHILE path.  Each frame's wall, spans and
 solves (the solve spans' ``loop_log`` entries) go to ``record["stamped"]``.
 
-The metrics of the stamped pass (``benchmark/metrics/``) call ``frames``,
-which runs the pass once, in the process of a ``--trace 1`` run of
-``benchmark/run.py`` (found from its command line), after the check; in
-any other process, and with a program that has no stamping tracer, it
-leaves ``record["stamped"]`` None and every such metric reads nothing.
-A pass that raises is not caught: the traced run fails.  (Starting the
-pass from a reader is a stop-gap: ``run.py`` should run it before
-``_profile`` and put it in the record, which is an edit of the harness.)
+``run_cell`` runs the pass in a ``--trace 1`` run, after the window and
+before the profiled frame, and puts it in ``record["stamped"]``; its
+metrics (``benchmark/metrics/``) read that key.  A pass that raises is not
+caught: the traced run fails.  Without the key, and with a program that
+has no stamping tracer, every such metric reads nothing.
 
 On the card, between one span's closing stamp and the next span's opening
 stamp in stream order no work was launched (every statement of
@@ -29,47 +26,19 @@ gaps, summed by that span, on standard error.
 
 from __future__ import annotations
 
-import argparse
 import inspect
 import statistics
 import sys
 import time
 from collections import defaultdict
-from pathlib import Path
 
-HERE = Path(__file__).resolve().parent
 SECONDS = 10.0  # the least length of the pass
 SOLVE_STAGES = {"solve (blind)": "blind", "solve (non-blind)": "non-blind"}
 
 
 def frames(record: dict):
-    """``record["stamped"]``: run the pass once where this is a traced run of
-    the harness on a CUDA device, else None."""
-    if "stamped" not in record:
-        record["stamped"] = None
-        cell = _harness_cell()
-        if cell is not None:
-            import torch
-
-            if torch.cuda.is_available():  # a pass that raises fails the run
-                record["stamped"] = run_pass(cell, torch.device("cuda"))
-    return record["stamped"]
-
-
-def _harness_cell():
-    """The cell of this process's ``python3 -m benchmark.run --workload NAME
-    ... --trace 1``, or None."""
-    if not sys.argv or Path(sys.argv[0]).resolve() != HERE / "run.py":
-        return None
-    parser = argparse.ArgumentParser(add_help=False)
-    parser.add_argument("--workload")
-    parser.add_argument("--trace", type=int, default=0)
-    args, _ = parser.parse_known_args(sys.argv[1:])
-    if args.trace != 1 or not args.workload:
-        return None
-    from benchmark.run import Cell
-
-    return Cell(args.workload, HERE.parent)
+    """``record["stamped"]``, the pass's frames, or None."""
+    return record.get("stamped")
 
 
 def stamping(tracer_type) -> bool:
@@ -78,9 +47,10 @@ def stamping(tracer_type) -> bool:
             and callable(getattr(tracer_type, "collect", None)))
 
 
-def run_pass(cell, dev, seconds: float = SECONDS):
-    """The stamped pass on ``dev``: one entry per frame, or None where the
-    program has no stamping tracer."""
+def run_pass(cell, dev, seconds: float = SECONDS, pool=None):
+    """The stamped pass on ``dev`` over ``pool`` (the mix's, made here
+    without it): one entry per frame, or None where the program has no
+    stamping tracer."""
     import torch
 
     from benchmark import scenes
@@ -94,10 +64,13 @@ def run_pass(cell, dev, seconds: float = SECONDS):
 
     cuda = dev.type == "cuda"
     h, w, _ = cell.config["frame"]
-    kw = dict(cell.config["kwargs"], verbose=False, device=str(dev))
     mix = cell.mix
-    pool = scenes.pool(h, w, kw["blur_width"], mix["scene_seeds"][:mix["pool"]], dev,
-                       noise=mix["noise"], blocks=mix["blocks"])
+    if pool is None:
+        pool = scenes.pool(h, w, cell.config["kwargs"]["blur_width"],
+                           mix["scene_seeds"][:mix["pool"]], dev, noise=mix["noise"],
+                           blocks=mix["blocks"])
+    cell.set_up()
+    kw = cell.kwargs(dev)
     out = []
     t0 = time.perf_counter()
     while not out or len(out) % len(pool) or time.perf_counter() - t0 < seconds:

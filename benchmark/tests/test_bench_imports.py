@@ -47,3 +47,15 @@ def test_the_check_compares_whole_names():
     names = {"ics_tpu_torch", "ics_tpu_torch.models", "jaxtyping", "numpy"}
     assert not {n.split(".")[0] for n in names} & set(FORBIDDEN)
     assert {n.split(".")[0] for n in ("jax.numpy", "ics_tpu.ops")} <= set(FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", [p for p in FILES if p.parent.name != "reference"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_only_the_cell_names_the_reference(path):
+    """Outside ``reference/`` a cell's reference comes from ``run.Cell``, which
+    loads the one its configuration names: no file imports ``plain``."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.module == "benchmark.reference":
+            assert "plain" not in {a.name for a in node.names}, path
+        elif isinstance(node, ast.Import):
+            assert "benchmark.reference.plain" not in {a.name for a in node.names}, path

@@ -8,8 +8,12 @@ import hashlib
 import json
 import re
 
+from pathlib import Path
+
+import numpy as np
 import pytest
 
+from benchmark import scenes
 from benchmark.run import Cell
 from benchmark.tests.conftest import ROOT, tiny_tree
 
@@ -62,26 +66,72 @@ def test_cell_pieces_found_by_name(cell):
         assert isinstance(k.NAME, str) and len(k.CALL) == 2 and callable(k.work)
 
 
+@pytest.mark.parametrize("cell", ["cam24-exact.blind", "ref19-exact.blind"])
+def test_the_blind_cells_keep_their_kwargs_and_reference(cell):
+    c = Cell(cell, ROOT)
+    assert c.set_up() == {} and c.kwargs() == c.config["kwargs"]
+    assert c.kwargs("cuda") == dict(c.config["kwargs"], verbose=False, device="cuda")
+    assert Path(c.reference.__file__) == ROOT / "benchmark/reference/plain.py"
+    assert c.limits == c.config["limits"] and not (ROOT / f"benchmark/cells/{cell}.json").exists()
+
+
+def test_the_stored_psf_mix_writes_the_true_psf():
+    from ics_tpu_torch.models.checkpoint import load_checkpoint
+
+    c = Cell("cam24-exact.stored-psf", ROOT)
+    with pytest.raises(RuntimeError, match="set-up"):
+        c.kwargs()
+    added = c.set_up()
+    assert c.set_up() is added and set(added) == {"psf_path"}
+    assert c.kwargs() == dict(c.config["kwargs"], psf_path=added["psf_path"])
+    ckpt = load_checkpoint(added["psf_path"])
+    taps = scenes.gauss_taps(9).numpy()
+    assert ckpt.psf.dtype == np.float32 and ckpt.psf.shape == (9, 9, 3)
+    assert ckpt.blur_width == 9 and ckpt.phase == "blind" and ckpt.iterations_done == 0
+    for ch in range(3):
+        assert np.array_equal(ckpt.psf[:, :, ch], np.outer(taps, taps).astype(np.float32))
+    assert np.array_equal(c.reference.stored_psf(added["psf_path"]), ckpt.psf)
+
+
 def test_new_cell_adds_files_only(tmp_path):
-    before = {p: hashlib.sha256(p.read_bytes()).hexdigest()
-              for p in (ROOT / "benchmark").rglob("*") if p.is_file() and "__pycache__" not in
-              p.parts}
+    """A configuration that names its own reference, a mix with a set-up of
+    its own and a cell's own limits come in as new files and entries only."""
     root = tiny_tree(tmp_path)
-    mix = json.loads((root / "benchmark/traffic/blind.json").read_text())
-    (root / "benchmark/traffic/two.json").write_text(json.dumps(dict(mix, name="two", pool=2)))
+    here = root / "benchmark"
+    before = {p: hashlib.sha256(p.read_bytes()).hexdigest()
+              for p in here.rglob("*") if p.is_file() and "__pycache__" not in p.parts}
+    mix = json.loads((here / "traffic/blind.json").read_text())
+    (here / "traffic/two.json").write_text(json.dumps(dict(mix, name="two", pool=2)))
+    (here / "traffic/two.py").write_text(
+        "def prepare(cell, directory):\n"
+        "    (directory / 'made').write_text(cell.name)\n"
+        "    return {'made_in': str(directory)}\n")
+    cfg = json.loads((here / "configs/tiny.json").read_text())
+    (here / "configs/tiny2.json").write_text(json.dumps(dict(cfg, name="tiny2",
+                                                             reference="plain2")))
+    (here / "reference/plain2.py").write_text(
+        (here / "reference/plain.py").read_text() + "\nOWN = True\n")
     bench = json.loads((root / "BENCHMARK.json").read_text())
-    bench["workloads"].append(dict(name="tiny.two", config="tiny", traffic="two", chips=1,
+    bench["configs"].append(dict(bench["configs"][0], name="tiny2",
+                                 file="benchmark/configs/tiny2.json"))
+    bench["workloads"].append(dict(name="tiny2.two", config="tiny2", traffic="two", chips=1,
                                    why="t"))
-    (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    (root / "benchmark/metrics/extra_ms.py").write_text("def read(record):\n    return 1.0\n")
+    (here / "metrics/extra_ms.py").write_text("def read(record):\n    return 1.0\n")
     bench["per_layer"].append(dict(name="extra_ms", unit="ms", better="lower",
                                    source="program_span", layer="pipeline", moves="frame_s",
-                                   workloads=["tiny.two"]))
+                                   workloads=["tiny2.two"]))
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    cell = Cell("tiny.two", root)
-    assert cell.mix["pool"] == 2 and cell.config["name"] == "tiny"
+    (here / "cells/tiny2.two.json").write_text(json.dumps(dict(limits=dict(u_gap=None,
+                                                                          codes_gap=5))))
+    cell = Cell("tiny2.two", root)
+    assert cell.limits == dict({k: v for k, v in cfg["limits"].items() if k != "u_gap"},
+                               codes_gap=5)
+    assert cell.mix["pool"] == 2 and cell.config["name"] == "tiny2"
     assert "extra_ms" in [m["name"] for m, _ in cell.per_layer]
+    assert cell.reference.OWN and Path(cell.reference.__file__) == here / "reference/plain2.py"
+    made = Path(cell.set_up()["made_in"])
+    assert (made / "made").read_text() == "tiny2.two"
+    assert cell.kwargs("cpu") == dict(cfg["kwargs"], made_in=str(made), verbose=False,
+                                      device="cpu")
     for p, digest in before.items():
-        copy = root / p.relative_to(ROOT)
-        if copy.exists():
-            assert hashlib.sha256(copy.read_bytes()).hexdigest() == digest, p
+        assert hashlib.sha256(p.read_bytes()).hexdigest() == digest, p

@@ -8,7 +8,7 @@ import json
 import pytest
 
 from benchmark import stamped
-from benchmark.run import Cell
+from benchmark.run import HERE, Cell, _load, run_cell
 from benchmark.tests.conftest import ROOT
 
 NEW = ("while_body_ms.blind", "while_body_ms.nonblind", "kernels_per_outer.blind",
@@ -97,23 +97,19 @@ def test_the_readers_read_nothing_without_stamps(name):
     assert _read(name, dict(stamped=[])) is None
     empty = dict(stamped=[dict(_frame(), spans=[_span(1, "frame", None, (0, 10))])])
     assert _read(name, empty) is None
-    record = {"frames": []}  # not a harness run: no pass, and nothing read
-    assert _read(name, record) is None and record["stamped"] is None
+    assert _read(name, {"frames": []}) is None  # no pass in the record: nothing read
 
 
 def test_a_pass_that_raises_fails_the_run(monkeypatch, tiny):
     """In a traced harness run a failing pass is not read as 'nothing
-    stamped': the reader raises, and with it the run."""
-    import torch
+    stamped': it raises, and with it the run."""
 
-    def broken(cell, dev):
+    def broken(cell, dev, seconds, pool=None):
         raise RuntimeError("illegal memory access")
 
-    monkeypatch.setattr(stamped, "_harness_cell", lambda: tiny)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(stamped, "run_pass", broken)
     with pytest.raises(RuntimeError, match="illegal memory access"):
-        _read("host_wait_pct", {"frames": []})
+        run_cell(tiny, 2**31 + 3, 0.5, True, device="cpu")
 
 
 def test_the_new_metrics_are_in_the_contract():
@@ -123,7 +119,9 @@ def test_the_new_metrics_are_in_the_contract():
     layers = {m["layer"] for m in bench["per_layer"] if m["name"] not in NEW}
     for m in mine.values():
         assert m["moves"] == "frame_s" and m["layer"] in layers
-        assert m["workloads"] == [w["name"] for w in bench["workloads"]]
+        # a blind body is read only where the mix runs the blind phase
+        assert m["workloads"] == [w["name"] for w in bench["workloads"]
+                                  if w["traffic"] == "blind" or not m["name"].endswith(".blind")]
 
 
 def test_the_pass_on_a_tiny_cell_on_the_cpu(tiny):
@@ -148,3 +146,22 @@ def test_the_pass_reads_on_the_card(tiny, cuda):
     counts = {f["scene"]: [s["body_nodes"]["kernel"] for s in f["solves"]]
               for f in record["stamped"]}
     assert all(all(k > 0 for k in c) for c in counts.values())
+
+
+@pytest.mark.cuda
+def test_the_stored_psf_cell_reads_on_the_card(cuda):
+    """A short traced run of ``cam24-exact.stored-psf`` itself on the card
+    (about a minute; its window holds the first four frames, among which
+    the check draws its frame): each per-layer metric that lists the cell
+    reads a value, each that does not (the blind bodies, K2, whose window
+    the full frame does not fit) reads nothing, not 0."""
+    cell = Cell("cam24-exact.stored-psf", ROOT)
+    out = run_cell(cell, 2**31 + 5, 8.0, True, device="cuda")
+    assert out["correct"]
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    for m in bench["per_layer"]:
+        value = _load(HERE / "metrics" / f"{m['name']}.py").read(out["record"])
+        if cell.name in m["workloads"]:
+            assert value is not None and value > 0, m["name"]
+        else:
+            assert value is None, (m["name"], value)
