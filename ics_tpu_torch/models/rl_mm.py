@@ -69,9 +69,11 @@ _EAGER_LOOP = False  # set by _eager_outer_loop()
 # loop's count is read: _read_launches), and the host milliseconds of the
 # body's capture and of the WHILE graph's build and instantiation (None
 # without a graph); a 'while' entry also has ``body_nodes``, the captured
-# body's graph nodes by type (ops/cuda_outer.py::graph_nodes; None without
-# a graph).  A stamping tracer's solve spans keep their entries too
-# (utils/trace.py), whatever this log's bound.
+# body's graph nodes by type (ops/cuda_outer.py::graph_nodes), and
+# ``body_launches``, each kernel wrapper's launches over the capture of one
+# body, keyed by kernel (``_launch_counters``); both None without a graph.  A
+# stamping tracer's solve spans keep their entries too (utils/trace.py),
+# whatever this log's bound.
 loop_log = collections.deque(maxlen=64)
 # the fixed-count WHILE launches whose counts the host has not read yet:
 # (loop_log entry, launches per captured body, the state's counts as copied
@@ -574,22 +576,24 @@ def _host_loop(body, st, iterations):
 
 
 def _launch_counters():
-    """(module, attribute) of every kernel wrapper's launch counter."""
+    """(module, attribute, kernel) of every kernel wrapper's launch counter."""
     from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
                                    cuda_solver, cuda_tv)
 
-    return [(cuda_conv, "launches"), (cuda_solver, "launches"), (cuda_correlate, "launches"),
-            (cuda_tv, "launches"), (cuda_bilateral, "launches"), (cuda_outer, "launches"),
-            *((cuda_conv_mma, f"{v}_launches") for v in ("split", "bf16", "highest", "default")),
-            (cuda_outer, "while_launches")]
+    return [(cuda_conv, "launches", "k1"), (cuda_solver, "launches", "k2"),
+            (cuda_correlate, "launches", "k3"), (cuda_tv, "launches", "k5"),
+            (cuda_bilateral, "launches", "k6"), (cuda_outer, "launches", "k7"),
+            *((cuda_conv_mma, f"{v}_launches", k) for v, k in (
+                ("split", "k4s"), ("bf16", "k4"), ("highest", "k4h"), ("default", "k4d"))),
+            (cuda_outer, "while_launches", "k7w")]
 
 
 def _launch_values() -> list[int]:
-    return [getattr(mod, name) for mod, name in _launch_counters()]
+    return [getattr(mod, name) for mod, name, _ in _launch_counters()]
 
 
 def _set_launches(values) -> None:
-    for (mod, name), value in zip(_launch_counters(), values):
+    for (mod, name, _), value in zip(_launch_counters(), values):
         setattr(mod, name, value)
 
 
@@ -656,14 +660,15 @@ def _while_loop(body, st, iterations, read=True):
     graphs are freed before returning, the pool stays for the next.
 
     The captured body's nodes are counted by type into the entry
-    (``body_nodes``) while the card runs the launch.  Within a stamping
+    (``body_nodes``) while the card runs the launch, and its wrappers'
+    launches by kernel (``body_launches``).  Within a stamping
     tracer's frame (utils/trace.py::active) the solve opens the spans
     'outer 1', 'capture', 'build' and 'while', and K7w stamps each of its
     runs into a buffer of the tracer's, made before the capture; with no
     tracer K7w gets a null pointer and nothing more is done."""
     _settle_unread(wait=False)
     entry = dict(route="while", outers=0, reads=0, k7w=0, capture_ms=None, instantiate_ms=None,
-                 body_nodes=None)
+                 body_nodes=None, body_launches=None)
     tracer = trace.active()
     span = _untraced if tracer is None else tracer.span
     stamps = None if tracer is None or iterations < 2 else tracer.k7w_stamps(iterations + 1,
@@ -684,6 +689,7 @@ def _while_loop(body, st, iterations, read=True):
                 body()
                 graph.capture_end()
             per_body = [a - b for a, b in zip(_launch_values(), before)]
+            entry["body_launches"] = {key: n for (*_, key), n in zip(_launch_counters(), per_body)}
         finally:
             _set_launches(before)
         t1 = time.perf_counter()

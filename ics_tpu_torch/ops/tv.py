@@ -3,16 +3,17 @@
 lib/deconvolution.pyx:137-239), and the collaborative channel couplings.
 
 Every stencil runs through ``ops/cuda_tv.py``: K5 on CUDA tensors, its plain
-twin (a transcription of the JAX ``tv_op``) on CPU tensors.  The public
-functions take the JAX package's (H, W, C) or (H, W) layout; the solver
-calls the planar ``tv_auto_planar``.
+twin (a transcription of the JAX ``tv_op``) on CPU tensors, called through
+the module's attribute, so that a wrapper set on ``cuda_tv.tv_planar`` sees
+every call.  The public functions take the JAX package's (H, W, C) or (H, W)
+layout; the solver calls the planar ``tv_auto_planar``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ics_tpu_torch.ops.cuda_tv import tv_planar
+from ics_tpu_torch.ops import cuda_tv
 
 __all__ = ["tv_op", "tv_op_auto", "tv_auto_planar", "collab_sup", "collab_l2"]
 
@@ -49,7 +50,7 @@ def _hwc_call(u: torch.Tensor, fn):
 
 def tv_op(u: torch.Tensor, epsilon: float, order: int = 2, norm: int = 1):
     """``(tv, div)`` with zero borders, both shaped like ``u`` (H, W[, C])."""
-    return _hwc_call(u, lambda p: tv_planar(p, epsilon, order, norm))
+    return _hwc_call(u, lambda p: cuda_tv.tv_planar(p, epsilon, order, norm))
 
 
 def tv_auto_planar(u: torch.Tensor, epsilon: float, order: int = 2, norm: int = 1,
@@ -60,7 +61,7 @@ def tv_auto_planar(u: torch.Tensor, epsilon: float, order: int = 2, norm: int = 
         raise ValueError(f"unknown tv method {method!r}")
     if collab not in _COLLAB:
         raise ValueError(f"unknown collab coupling {collab!r}")
-    tv, div = tv_planar(u, epsilon, order, norm)
+    tv, div = cuda_tv.tv_planar(u, epsilon, order, norm)
     if collab and u.shape[0] > 1:
         tv = _couple(tv, collab, 0)
     return tv, div

@@ -840,8 +840,8 @@ def _check_while(log, outers, got_n, want_n, reads=1):
     as in the Python loop."""
     from ics_tpu_torch.models import rl_mm
 
-    names = [(mod, name) for mod, name in rl_mm._launch_counters()]
-    k7, k7w = names.index((cuda_outer, "launches")), names.index((cuda_outer, "while_launches"))
+    keys = [key for *_, key in rl_mm._launch_counters()]
+    k7, k7w = keys.index("k7"), keys.index("k7w")
     assert (log["route"], log["outers"], log["reads"], log["k7w"]) == ("while", outers, reads,
                                                                        outers)
     assert log["capture_ms"] > 0 and log["instantiate_ms"] > 0
@@ -910,9 +910,8 @@ def test_while_loop_one_iteration_builds_no_graph_on_gpu(solver):
         run = lambda: fn(image, u, psf, *win, tau=0.0, iterations=1, blind=True, device=dev)
     (got, got_n, log), (want, want_n, _) = _both_loops(run)
     assert log == dict(route="while", outers=1, reads=0, k7w=0, capture_ms=None,
-                       instantiate_ms=None, body_nodes=None)
-    k7w = [(mod, name) for mod, name in rl_mm._launch_counters()].index(
-        (cuda_outer, "while_launches"))
+                       instantiate_ms=None, body_nodes=None, body_launches=None)
+    k7w = [key for *_, key in rl_mm._launch_counters()].index("k7w")
     assert got_n[k7w] == 0
     if solver == "tv_denoise":
         assert torch.equal(got, want)
