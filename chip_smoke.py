@@ -56,7 +56,7 @@ Phases:
   5. the 24 MP case (bench.py's kwargs) in exact f32, the main path, then
      in precision 'high', in 'mixed', with use_tv, and with the 'pam' and
      'pd' solvers: the launch counters are zeroed just before each run;
-     K1-K3, K7, K7w and the resize must be > 0 after the exact run, K4s after 'high',
+     K1-K3, K7, K7w, K8 and the resize must be > 0 after the exact run, K4s after 'high',
      K4 after 'mixed', K5 after use_tv, K1, K3 and K5 after 'pam' and K3
      after 'pd'; then SSIM of the 24 MP scene as CUDA tensors (the
      metrics' device path in bands, K1) against its float64 host path;
@@ -291,7 +291,7 @@ def _counters():
     the card, models/rl_mm.py::_settle_unread)."""
     from ics_tpu_torch.models import rl_mm
     from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
-                                   cuda_outer, cuda_resize, cuda_solver, cuda_tv)
+                                   cuda_outer, cuda_resize, cuda_solver, cuda_step, cuda_tv)
 
     rl_mm._settle_unread()
     return {
@@ -301,17 +301,18 @@ def _counters():
         "K4d": cuda_conv_mma.default_launches, "K5": cuda_tv.launches,
         "K6": cuda_bilateral.launches, "K7": cuda_outer.launches,
         "K7w": cuda_outer.while_launches, "resize": cuda_resize.launches,
+        "K8": cuda_step.launches,
     }
 
 
 def _zero_counters() -> None:
     from ics_tpu_torch.models import rl_mm
     from ics_tpu_torch.ops import (cuda_bilateral, cuda_conv, cuda_conv_mma, cuda_correlate,
-                                   cuda_outer, cuda_resize, cuda_solver, cuda_tv)
+                                   cuda_outer, cuda_resize, cuda_solver, cuda_step, cuda_tv)
 
     rl_mm._settle_unread()  # an earlier run's launches are not counted after the zero
     for mod in (cuda_conv, cuda_solver, cuda_correlate, cuda_tv, cuda_bilateral, cuda_outer,
-                cuda_resize):
+                cuda_resize, cuda_step):
         mod.launches = 0
     cuda_outer.while_launches = 0
     cuda_conv_mma.split_launches = cuda_conv_mma.bf16_launches = 0
@@ -390,7 +391,7 @@ def phase_pipelines(torch, dev):
     kw24 = bench.KW24
     launches, solver_launches = {}, {}
     for label, extra, names in [
-        ("exact", dict(precision="exact"), ("K1", "K2", "K3", "K7", "K7w", "resize")),
+        ("exact", dict(precision="exact"), ("K1", "K2", "K3", "K7", "K7w", "resize", "K8")),
         ("high", dict(precision="high"), ("K4s",)),
         ("mixed", dict(precision="mixed"), ("K4",)),
         ("use_tv collab", dict(precision="exact", use_tv=True, tv_norm="collab"), ("K5",)),
@@ -453,7 +454,7 @@ _KERNEL_NAMES = [("conv2d_kernel", "K1"), ("inner_loop_kernel", "K2"), ("psf_gra
                  ("conv_mma_kernel<1,", "K4s"), ("conv_mma_kernel<0,", "K4"),
                  ("conv_mma_kernel<2,", "K4h"), ("conv_mma_kernel<3,", "K4d"),
                  ("tv_kernel", "K5"), ("bilateral_kernel", "K6"), ("outer_stop_kernel", "K7"),
-                 ("while_go_kernel", "K7w")]
+                 ("while_go_kernel", "K7w"), ("mm_step_", "K8")]
 
 
 # the wrappers whose launches are split by shape class in the profile
@@ -1934,6 +1935,9 @@ def main() -> int:
         # no TPU kernel: jax.image.resize's dense weight matrices
         "resize": ("ics_tpu_torch/csrc/resize.cu",
                    "none: jax.image.resize, ics_tpu/utils/resize.py:51"),
+        # no TPU kernel: XLA fuses steps 4-8 of the solver's lax.scan body
+        "K8": ("ics_tpu_torch/csrc/mm_step.cu",
+               "none: XLA fuses steps 4-8 of ics_tpu/models/rl_mm.py:377-531"),
     }
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

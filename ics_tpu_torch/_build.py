@@ -87,6 +87,10 @@ _SIGNATURES = {
     # src, dst, start, count, weights (ops/cuda_resize.py), outer, n_in, n_out, inner,
     # stream
     "ics_resample": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # gradu, u, ut, image, out, partial, C, uM, uN, M, N, pad, blocks, chunk,
+    # lambd, inv_lambd, sf, inv_un, eps, blind, stream (ops/cuda_step.py)
+    "ics_mm_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                    _F, _F, _F, _F, _F, _I, _P],
     # driver (out), runtime (out)
     "ics_cuda_versions": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
 }

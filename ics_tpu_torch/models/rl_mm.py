@@ -25,7 +25,8 @@ Inner loop, per outer iteration, as ``RLConfig.inner_loop`` routes it
 the op-level loop on the convolution dispatch (``RLConfig.conv_method``:
 'auto' runs K1, K4s under ``conv_precision='high'`` and K4 for bf16
 operands; 'pallas_mxu' K4h, or K4d under 'fast'), the K3 PSF
-gradient (float32 blind solves) and the K5 TV stencil (``use_tv``).  K2
+gradient (float32 blind solves), the K5 TV stencil (``use_tv``) and K8, the
+MM step (steps 4-8 of a float32 parity-mode solve, ``mm_step_route``).  K2
 does its own convolutions, as JAX's kernel does, whatever
 ``conv_method`` says.  On the CPU, both run on the plain twins.
 
@@ -45,7 +46,7 @@ import numpy as np
 import torch
 
 from ics_tpu_torch._device import exact_f32, resolve_device
-from ics_tpu_torch.ops import cuda_outer
+from ics_tpu_torch.ops import cuda_outer, cuda_step
 from ics_tpu_torch.ops.conv import METHODS, _autocorrelate_planar, conv_planar
 from ics_tpu_torch.ops.cuda_correlate import psf_gradient_planar
 from ics_tpu_torch.ops.cuda_solver import fits, inner_loop_ops, inner_loop_planar
@@ -275,6 +276,16 @@ def inner_loop_route(inner_loop: str, *, device_type: str, fits: bool, use_tv: b
     return "kernel"
 
 
+def mm_step_route(*, device_type: str, compute: torch.dtype, use_tv: bool, guard: bool,
+                  mixed: bool, lanes: int, shard) -> bool:
+    """Whether the op loop runs steps 4-8 as K8 (``cuda_step.mm_step``): on
+    CUDA, in float32, in parity mode (no ``use_tv``, no DoF guard, not
+    ``mixed``), one image and one device.  Blind and non-blind alike; every
+    other solve keeps the tensor ops of ``inner_loop_ops``."""
+    return (device_type == "cuda" and compute == torch.float32 and not use_tv and not guard
+            and not mixed and lanes == 1 and shard is None)
+
+
 def _solve(
     image,
     u,
@@ -371,11 +382,14 @@ def _solve(
         collab = _TV_NORMS[tv_norm]
         tv = (lambda a, norm: _tv_lanes(a, epsilon, norm, tv_method, collab,
                                         a.shape[0] // chans)) if use_tv else None
+        k8 = mm_step_route(device_type=dev.type, compute=compute, use_tv=use_tv, guard=guard,
+                           mixed=mixed, lanes=lanes, shard=shard)
 
         def inner(u, image, psf, lanes, **kw):
             return inner_loop_ops(
                 u, image, psf, conv=conv, psf_grad=grad, guard=guard,
-                mixed=mixed, tv=tv, lanes=lanes, shard=shard, **kw
+                mixed=mixed, tv=tv, lanes=lanes, shard=shard,
+                step=cuda_step.mm_step if k8 else None, **kw
             )
 
     window = (top, bottom, left, right)
@@ -585,7 +599,7 @@ def _launch_counters():
             (cuda_bilateral, "launches", "k6"), (cuda_outer, "launches", "k7"),
             *((cuda_conv_mma, f"{v}_launches", k) for v, k in (
                 ("split", "k4s"), ("bf16", "k4"), ("highest", "k4h"), ("default", "k4d"))),
-            (cuda_outer, "while_launches", "k7w")]
+            (cuda_step, "launches", "k8"), (cuda_outer, "while_launches", "k7w")]
 
 
 def _launch_values() -> list[int]:

@@ -41,7 +41,8 @@ def fits(u_m: int, u_n: int) -> bool:
 
 
 def inner_loop_ops(u, image, psf, *, step_factor, lambd, blind, correlation,
-                   conv, psf_grad, guard=False, mixed=False, tv=None, lanes=1, shard=None):
+                   conv, psf_grad, guard=False, mixed=False, tv=None, lanes=1, shard=None,
+                   step=None):
     """One outer iteration's five inner iterations as separate tensor ops
     (ics_tpu/models/rl_mm.py:377-531).
 
@@ -63,7 +64,14 @@ def inner_loop_ops(u, image, psf, *, step_factor, lambd, blind, correlation,
     and stencils read halo rows from the neighbouring ranks, the maxima and
     the PSF gradient are reduced over every rank.  ``None`` runs the
     operations of a one-device solve.
+
+    ``step(u, ut, gradu, image, *, step_factor, lambd, blind) -> u'`` is the
+    backend of steps 4-8 in parity mode (``ops/cuda_step.py::mm_step``, K8);
+    ``None`` runs them as the tensor ops below.  It takes neither the guard,
+    ``tv`` nor ``shard``.
     """
+    if step is not None and (guard or tv is not None or shard is not None):
+        raise ValueError("a step backend takes parity mode only: no guard, tv or shard")
     _, u_m, u_n = u.shape
     _, m, n = image.shape
     if shard is not None:
@@ -116,41 +124,44 @@ def inner_loop_ops(u, image, psf, *, step_factor, lambd, blind, correlation,
         if tv is not None:
             tv_u_l1 = own(tv(u_x, 1)[0])
             tv_u_l2, div = map(own, tv(u_x, 2))
-        # 4. depth-of-field weights from the raw correlation (no epsilon);
-        # the guard keeps the observed pixel where the denominator is 0
-        # and caps dof at 1
-        gcrop = gradu[crop]
-        if guard:
-            den = gcrop + image
-            zero = den == 0.0
-            dof = torch.where(zero, 1.0, ((gcrop - image) / torch.where(zero, 1.0, den)) ** 2)
+        if step is not None:  # steps 4-8 in one backend call
+            u = step(u, ut, gradu, image, step_factor=step_factor, lambd=lambd, blind=blind)
         else:
-            dof = ((gcrop - image) / (gcrop + image)) ** 2
-        if not blind:
-            dof = dof / lambd
-        if guard:
-            dof = torch.clamp(dof, max=1.0)
-        # 5. regularization: parity mode, or the live/dead MM step of use_tv
-        if tv is not None:
-            live = (tv_ut_l1 != 0.0) & (tv_u_l1 != 0.0)
-            reg = div / tv_u_l1 / tv_ut_l1 / 2.0 + div / tv_u_l2 / tv_ut_l2 / 2.0
-            greg = torch.where(
-                live, reg + lambd * gradu + (u - ut) / 4.0, lambd * gradu + (u - ut) / 2.0
-            )
-        else:
-            greg = lambd * gradu + (u - ut) / 2.0
-        # 6. per-channel step over the whole padded window
-        u_max, greg_max = maxima(u, torch.abs(greg))
-        dt = sf * (u_max + inv_un) / (greg_max + 1e-15)
-        u = u - dt[:, None, None] * greg
-        # 7. TV-denoise the observed image (use_tv only)
-        if tv is not None:
-            denoise = torch.where(live, reg, 0.0)
-            image_max, denoise_max = maxima(image, torch.abs(denoise))
-            dt_img = sf * (image_max + 1.0 / (m * n)) / (denoise_max + 1e-15)
-            image = image - dt_img[:, None, None] * denoise[crop] / lambd
-        # 8. keep the blurry image where deblurring failed (inner crop only)
-        u[crop] = (1.0 - dof) * u[crop] + dof * image
+            # 4. depth-of-field weights from the raw correlation (no epsilon);
+            # the guard keeps the observed pixel where the denominator is 0
+            # and caps dof at 1
+            gcrop = gradu[crop]
+            if guard:
+                den = gcrop + image
+                zero = den == 0.0
+                dof = torch.where(zero, 1.0, ((gcrop - image) / torch.where(zero, 1.0, den)) ** 2)
+            else:
+                dof = ((gcrop - image) / (gcrop + image)) ** 2
+            if not blind:
+                dof = dof / lambd
+            if guard:
+                dof = torch.clamp(dof, max=1.0)
+            # 5. regularization: parity mode, or the live/dead MM step of use_tv
+            if tv is not None:
+                live = (tv_ut_l1 != 0.0) & (tv_u_l1 != 0.0)
+                reg = div / tv_u_l1 / tv_ut_l1 / 2.0 + div / tv_u_l2 / tv_ut_l2 / 2.0
+                greg = torch.where(
+                    live, reg + lambd * gradu + (u - ut) / 4.0, lambd * gradu + (u - ut) / 2.0
+                )
+            else:
+                greg = lambd * gradu + (u - ut) / 2.0
+            # 6. per-channel step over the whole padded window
+            u_max, greg_max = maxima(u, torch.abs(greg))
+            dt = sf * (u_max + inv_un) / (greg_max + 1e-15)
+            u = u - dt[:, None, None] * greg
+            # 7. TV-denoise the observed image (use_tv only)
+            if tv is not None:
+                denoise = torch.where(live, reg, 0.0)
+                image_max, denoise_max = maxima(image, torch.abs(denoise))
+                dt_img = sf * (image_max + 1.0 / (m * n)) / (denoise_max + 1e-15)
+                image = image - dt_img[:, None, None] * denoise[crop] / lambd
+            # 8. keep the blurry image where deblurring failed (inner crop only)
+            u[crop] = (1.0 - dof) * u[crop] + dof * image
         if blind:
             # 9. PSF refinement from the post-update residual; a shard's
             # gradient is its rows' share, summed over the ranks

@@ -1,7 +1,7 @@
 """On-card certification and microbenchmarks of the port's CUDA kernels, and
 the blind-restoration batteries (counterpart of ics_tpu/utils/selftest.py).
 
-``certify_kernels`` holds every hand-written kernel (K1-K7, K7w, the resize) against
+``certify_kernels`` holds every hand-written kernel (K1-K8, K7w, the resize) against
 its plain PyTorch twin on the GPU at the shapes of the 24 MP path, then the K2
 inner loop against the op loop on one blind solve, then the pipeline's
 pre- and postprocess and cubic resize against the same steps done one
@@ -239,6 +239,13 @@ def _once(torch, label: str, fn) -> None:
         torch.cuda.synchronize()
     except Exception as exc:
         raise _Fault(f"{label}: {type(exc).__name__}: {exc}") from exc
+
+
+def _same_bits(torch, got, ref) -> bool:
+    """Bitwise equal, NaN at the same places (a NaN's payload aside)."""
+    nan = torch.isnan(ref)
+    return got.shape == ref.shape and torch.equal(torch.isnan(got), nan) and torch.equal(
+        got.masked_fill(nan, 0.0).view(torch.int32), ref.masked_fill(nan, 0.0).view(torch.int32))
 
 
 def _ulps(torch, got, ref) -> float:
@@ -808,6 +815,48 @@ class _Certify:
             del x, y
         self.rows.setdefault("resize", {})["max_abs_err"] = worst
 
+    def k8(self):
+        """K8 at the 24 MP full-frame window (3x4009x6009: the frame padded to
+        odd sizes, 4001x6001, the crop at pad 4 for mk 9), non-blind (lambd 1e4
+        and 1000/3, whose float32 reciprocal PyTorch rounds from float64) and
+        blind, against the ops of ``mm_step_plain`` it replaces: bitwise (NaN
+        at the same places), twice; then both passes timed beside the ops."""
+        from ics_tpu_torch.ops import cuda_step
+
+        torch = self.torch
+        c, um, un, m, n = 3, 4009, 6009, 4001, 6001
+        u = self.rand((c, um, un))
+        ut = u + (self.rand((c, um, un)) - 0.5) * 1e-3
+        gradu = u * 0.9 + (self.rand((c, um, un)) - 0.5) * 2e-4
+        img = self.rand((c, m, n))
+        worst = 0.0
+        for blind, lambd in ((False, 1e4), (False, 1000 / 3), (True, 1e4)):
+            kw = dict(step_factor=1e-3, lambd=lambd, blind=blind)
+            tag = f"K8 {c}x{um}x{un} blind={blind} lambd={lambd:g}"
+            got, again = _twice(torch, tag, lambda: cuda_step.mm_step(u, ut, gradu, img, **kw))
+            ref = cuda_step.mm_step_plain(u, ut, gradu, img, **kw)
+            err, rel = _rel(torch, got, ref)
+            worst = max(worst, err)
+            self.report(f"{tag}: max_abs_err {err:.3e} rel {rel:.3e} against the ops")
+            self.check(_same_bits(torch, got, ref), f"{tag} bitwise equal to the ops")
+            self.check(_same_bits(torch, got, again), f"{tag} bitwise reproducible")
+            del got, again, ref
+        kw = dict(step_factor=1e-3, lambd=1e4, blind=False)
+        ms, plain_ms, _, dev_ms = _time_turns(
+            torch, lambda: cuda_step.mm_step(u, ut, gradu, img, **kw),
+            lambda: cuda_step.mm_step_plain(u, ut, gradu, img, **kw), None, 10)
+        # pass A reads gradu, u and ut; pass B reads them again with the
+        # image on the crop and writes u': 8 plane-set passes (the work alone
+        # needs 5); some 20 f32 operations an element
+        n_u = c * um * un
+        bound = _bound(4 * (7 * n_u + c * m * n), 20 * n_u, "f32")
+        self.report(f"K8 {c}x{um}x{un} non-blind, both passes: kernel {ms:.4f} ms (device "
+                    f"{dev_ms:.4f}), the ops {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                    f"({bound['bound_by']}), {100 * bound['bound_ms'] / dev_ms:.1f} % of it by "
+                    f"device time")
+        self.rows["K8"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                               max_abs_err=worst, **bound)
+
     def inner_loop_routes(self):
         """The K2 inner loop (``inner_loop='pallas'``) against the op loop
         (``'xla'``, K1 and K3) on one 255^2 blind solve of 3 outers: u
@@ -884,7 +933,7 @@ def certify_kernels(report=print, device="cuda", rows: dict | None = None) -> bo
     check = _Checks(report)
     cert = _Certify(torch, dev, check, report, {} if rows is None else rows)
     for section in (cert.k1, cert.k2, cert.k3, cert.k4, cert.k5, cert.k6, cert.k7, cert.k7w,
-                    cert.resize, cert.inner_loop_routes, cert.glue):
+                    cert.k8, cert.resize, cert.inner_loop_routes, cert.glue):
         try:
             section()
         except _Fault as exc:

@@ -1,7 +1,7 @@
 """``rl_mm.loop_log``'s ``body_launches``: each kernel wrapper's launches over
 the capture of one WHILE body, keyed by kernel.  On the CPU a solve takes the
 host loop, which captures nothing and logs none; on the card a ``use_tv``
-solve's body launches K5 twelve times."""
+solve's body launches K5 twelve times, a parity-mode one K8 ten times."""
 
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ def _problem(m=40, mk=5):
 def test_every_counter_has_its_kernel_key():
     """Each launch counter names its kernel, and no two the same."""
     keys = [key for *_, key in rl_mm._launch_counters()]
-    assert len(set(keys)) == len(keys) and {"k1", "k3", "k5", "k7", "k7w"} <= set(keys)
+    assert len(set(keys)) == len(keys) and {"k1", "k3", "k5", "k7", "k7w", "k8"} <= set(keys)
 
 
 @pytest.mark.parametrize("use_tv", [False, True])
@@ -60,3 +60,21 @@ def test_a_while_body_logs_its_launches_on_gpu(use_tv, k5):
     assert list(got) == [key for *_, key in rl_mm._launch_counters()]
     assert (got["k5"], got["k7"], got["k3"], got["k2"], got["k7w"]) == (k5, 1, 5, 0, 0)
     assert got["k1"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_tv, k8", [(False, 10), (True, 0)])
+@pytest.mark.parametrize("blind", [False, True])
+def test_a_parity_body_launches_k8_on_gpu(blind, use_tv, k8):
+    """K8 runs steps 4-8 of each inner step, two launches each, in a
+    parity-mode body, blind or not; a ``use_tv`` body keeps the ops."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    image, u, psf, win = _problem()
+    rl_mm.loop_log.clear()
+    cfg = rl_mm.RLConfig(use_tv=use_tv, inner_loop="xla")
+    res = rl_mm.richardson_lucy_MM(image, u, psf, *win, tau=1e9, iterations=6, blind=blind,
+                                   config=cfg, device="cuda")
+    assert res.iterations == 6
+    entry = rl_mm.loop_log[-1]
+    assert entry["route"] == "while" and entry["body_launches"]["k8"] == k8

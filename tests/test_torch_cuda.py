@@ -688,8 +688,8 @@ def test_solver_conv_method_routes_on_gpu(method, precision, want, not_want):
 @pytest.mark.cuda
 def test_certify_kernels_passes_on_gpu():
     """utils.selftest.certify_kernels: K1-K6 at the 24 MP shapes, K7 and
-    K7w, the banded resize, the K2 inner loop against the op loop, the glue
-    against one op at a time."""
+    K7w, K8, the banded resize, the K2 inner loop against the op loop, the
+    glue against one op at a time."""
     from ics_tpu_torch.utils.selftest import certify_kernels
 
     _need_gpu()
@@ -699,7 +699,7 @@ def test_certify_kernels_passes_on_gpu():
     assert lines[-1].split(": ")[-1].endswith("checks passed")
     keys = {"ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err"}
     assert set(rows) == {"K1", "K2", "K3", "K4s", "K4", "K4h", "K4d", "K5", "K6", "K7", "K7w",
-                         "resize"}
+                         "K8", "resize"}
     assert all(set(row) == keys for row in rows.values())
     # the library calls timed beside K1, K3, K4h and K4d are held against
     # the twins
