@@ -13,7 +13,7 @@
         # WHILE loop, under torch.profiler or not (fault E, ROADMAP.md)
     python3 chip_smoke.py --outer-loop-profiles
         # phase 5's profiled 24 MP exact, 'high', 'mixed', 'pam' and 'pd'
-        # runs in the WHILE outer loop and in the Python one, in turns
+        # runs in the WHILE outer loop and in the host loop, in turns
 
 Phases:
   1. probe: the card and its driver (nvidia-smi), torch.version.cuda, nvcc,
@@ -43,7 +43,8 @@ Phases:
      rate).  Every one-image solve from phase 3 on (MM, PAM, PD) and
      ``tv_denoise`` runs its outers after the first as one launch of a
      WHILE graph, the stop decided on the card by K7 (models/rl_mm.py);
-     phases 11 and 12 hold that loop against the Python one;
+     phases 11 and 12 hold that loop against the host loop, the same
+     body launched outer by outer;
   3. the crop-scale pipeline on CUDA against the same pipeline on the CPU
      (SSIM of the uint16 outputs), in exact, mixed, high, fast, use_tv
      under each tv_norm, and with the TV-PAM and TV-PD solvers;
@@ -62,7 +63,7 @@ Phases:
      metrics' device path in bands, K1) against its float64 host path;
      then exact, 'high', 'mixed', 'pam' and 'pd' twice more each: in the
      WHILE loop, unprofiled, the wall, the solves, their host reads,
-     capture and instantiation time; in the Python loop under
+     capture and instantiation time; in the host loop under
      torch.profiler each kernel's summed device time and launches, K1, K4s
      and K4 split into full frames and blind windows (one profiled kernel
      per wrapper launch), one psf_grad kernel per K3 call, the device time
@@ -83,8 +84,9 @@ Phases:
      ``batched_deconvolve`` 'map' (each lane bitwise one
      ``richardson_lucy_MM`` call) and 'vmap' (SSIM >= 0.999 against 'map';
      K1 at most 10 launches per outer of the slowest lane), each profiled
-     in the Python outer loop for its device time per outer per lane and
-     peak memory ('map''s lanes against WHILE-loop calls); (b) the CLI
+     ('map''s lanes in the host loop, 'vmap' in the fold's loop) for its
+     device time per outer per lane and peak memory ('map''s lanes against
+     WHILE-loop calls); (b) the CLI
      ``deblur-batch`` on those frames as 16-bit TIFFs, alone and with
      ``--shard 1`` (one NCCL rank), bitwise equal to each other and to
      (a)'s 'map' run; (c) the 24 MP ``deblur_module(mesh=...)`` on two
@@ -125,16 +127,16 @@ Phases:
      (torch.profiler), and its JSON line assembled from these and phase
      5's 24 MP runs (``bench.KW24``), with BENCH_r05.json's keys;
  11. the outer loop: each solve case in the WHILE loop (untimed), in the
-     Python outer loop (``rl_mm._eager_outer_loop()``) and in the WHILE
-     loop again, bitwise equal (u, u_full, psf,
-     image, stats, the record; ``deblur_module``'s uint16 output and every
-     level's result), the same outers and launches (K7 and K7w once per
-     outer in the WHILE loop, never in the Python one), one host read per
-     solve; the
+     host loop, the captured body launched outer by outer
+     (``rl_mm._eager_outer_loop()``), and in the WHILE loop again, bitwise
+     equal (u, u_full, psf, image, stats, the record; ``deblur_module``'s
+     uint16 output and every level's result), the same outers and launches
+     (K7 once per outer in both, K7w in the WHILE loop only), one host read
+     per solve against one per outer; the
      1.9 MP blind mask window (K2), a 24 MP blind 520^2 window (the op loop,
      K3), the 24 MP non-blind frame at 20 outers, the 1.9 MP frame in
      'high', 'mixed' and use_tv collab, non-blind early_stop,
-     record_metrics, and ``deblur_module`` at 1.9 MP (the Python loop also
+     record_metrics, and ``deblur_module`` at 1.9 MP (the host loop also
      profiled: its busy share, and its device time over the WHILE loop's
      wall) and 24 MP exact (peak memory of
      both); walls, host reads,
@@ -506,7 +508,7 @@ def profile_run(torch, pic24, kw24, extra: dict) -> None:
     """One more 24 MP run with ``extra`` (a precision or a solver) in the
     WHILE loop, unprofiled: its wall, solves, host reads, capture and
     instantiation time.  Then one under torch.profiler, which puts every
-    solve in the Python outer loop (``rl_mm._eager_loop``): its wall, device
+    solve in the host loop (``rl_mm._eager_loop``): its wall, device
     busy seconds and busy share, each kernel's summed device time and
     launches, K1, K4s and K4 split by shape class (a full frame, or a blind
     window of at most 600x600: the op loop's 369^2 and 520^2 levels), and
@@ -555,7 +557,7 @@ def profile_run(torch, pic24, kw24, extra: dict) -> None:
         setattr(mods[m], f, classified(kid))
     try:
         _zero_counters()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the Python loop
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the host loop
             t0 = time.perf_counter()
             _, _, _, levels = _deblur(torch, pic24, "cuda", **{**kw24, **extra})
             wall = time.perf_counter() - t0
@@ -702,10 +704,10 @@ def _batch_runs(torch, dev, imgs, us, psfs, window):
     """(a): the burst through batched_deconvolve, 'map' then 'vmap', each
     under torch.profiler with the counters zeroed just before it; every
     'map' lane against a single richardson_lucy_MM call.  'map' runs its
-    lanes in the Python outer loop here (a solve under the profiler takes
-    it: models/rl_mm.py::_eager_loop), so the single calls, in the WHILE loop,
-    hold the two loops against each other; (b) times the CLI's 'map' in
-    the WHILE loop."""
+    lanes in the host loop here (a solve under the profiler takes it:
+    models/rl_mm.py::_eager_loop), so the single calls, in the WHILE loop,
+    hold the two loops against each other; 'vmap' runs the fold's loop,
+    which stops on K7 too; (b) times the CLI's 'map' in the WHILE loop."""
     from torch.profiler import ProfilerActivity, profile
 
     from ics_tpu_torch.cli import batch_codes
@@ -718,7 +720,7 @@ def _batch_runs(torch, dev, imgs, us, psfs, window):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         _zero_counters()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the Python loop
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the host loop
             t0 = time.perf_counter()
             u_b, _, stats_b = batched_deconvolve(imgs, us, psfs, *window, schedule=schedule,
                                                  device=dev, **kw)
@@ -727,7 +729,7 @@ def _batch_runs(torch, dev, imgs, us, psfs, window):
         counts = _counters()
         outers = [int(n) for n in stats_b[:, 0].tolist()]
         device_s = _device_seconds(torch, prof)
-        print(f"burst 4x24MP '{schedule}' (Python outer loop, profiled): wall {wall:.3f} s, "
+        print(f"burst 4x24MP '{schedule}' (profiled, no WHILE launch): wall {wall:.3f} s, "
               f"per-lane outers {outers}, "
               f"device {device_s:.3f} s, {device_s / sum(outers) * 1e3:.3f} ms device time per "
               f"outer per lane, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, "
@@ -1431,10 +1433,10 @@ def phase_bench(torch, dev, pic19, cases: dict) -> None:
         _require(np.isfinite(per_outer) and per_outer > 0 and counts[kid] > 0,
                  f"per-outer probe {precision}: finite stats, {kid} launched")
     # where the exact probe's time goes: one more call (a warm and a timed
-    # solve of 2 outers each) under torch.profiler, in the Python outer loop
+    # solve of 2 outers each) under torch.profiler, in the host loop
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the Python loop
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the host loop
         bench._per_outer_probe(iters=2, reps=1, device=dev)
     outers, sums = 4, {}
     for e in prof.events():
@@ -1490,17 +1492,17 @@ def _same_bits(torch, a, b) -> bool:
 
 
 def _check_loops(label, outers, same, graph, eager, phase=11, reads=1) -> None:
-    """One A/B case: ``graph`` and ``eager`` are (launches, wall, the WHILE
-    loop's log of solves) of the two loops.  Each solve of more than one
-    outer makes ``reads`` host reads (1; ``tv_denoise`` 0), one of one outer
-    none."""
-    (gn, gwall, solves), (en, ewall, _) = graph, eager
+    """One A/B case: ``graph`` and ``eager`` are (launches, wall, the log of
+    solves) of the WHILE loop and the host loop.  Each WHILE solve of more
+    than one outer makes ``reads`` host reads (1; ``tv_denoise`` 0), one of
+    one outer none; each host solve one read per outer."""
+    (gn, gwall, solves), (en, ewall, hosted) = graph, eager
     ms = lambda key: [round(e[key], 2) for e in solves if e[key] is not None]
     print(f"phase {phase}: {label}: {outers} outers in {len(solves)} solves; wall WHILE "
           f"{gwall:.3f} s, eager {ewall:.3f} s; host reads WHILE "
           f"{sum(e['reads'] for e in solves)} ({[e['reads'] for e in solves]} per solve), "
-          f"eager {outers if reads else 0}; capture ms per solve {ms('capture_ms')}, build + "
-          f"instantiation ms {ms('instantiate_ms')}; launches WHILE {json.dumps(gn)}, eager "
+          f"eager {sum(e['reads'] for e in hosted)}; capture ms per solve {ms('capture_ms')}, "
+          f"build + instantiation ms {ms('instantiate_ms')}; launches WHILE {json.dumps(gn)}, eager "
           f"{json.dumps(en)}")
     _require(same, f"phase {phase} {label}: WHILE and eager loops bitwise equal")
     _require(len(solves) > 0 and all(e["route"] == "while"
@@ -1508,14 +1510,18 @@ def _check_loops(label, outers, same, graph, eager, phase=11, reads=1) -> None:
                                      for e in solves)
              and sum(e["outers"] for e in solves) == outers,
              f"phase {phase} {label}: every solve one WHILE launch, {reads} host read per solve")
+    _require(len(hosted) == len(solves) and all(e["route"] == "host" and e["reads"] == e["outers"]
+                                                for e in hosted)
+             and sum(e["outers"] for e in hosted) == outers,
+             f"phase {phase} {label}: every eager solve in the host loop, one read per outer")
     _require(all(e["k7w"] == (e["outers"] if e["outers"] > 1 else 0) for e in solves),
              f"phase {phase} {label}: K7w's own count on the card, once per outer of each "
              f"WHILE launch ({[e['k7w'] for e in solves]})")
-    loop_only = ("K7", "K7w")
-    _require(gn["K7"] == gn["K7w"] == outers and en["K7"] == en["K7w"] == 0
-             and {k: v for k, v in gn.items() if k not in loop_only}
-             == {k: v for k, v in en.items() if k not in loop_only},
-             f"phase {phase} {label}: the same launches in both loops, K7 and K7w once per outer")
+    _require(gn["K7"] == gn["K7w"] == en["K7"] == outers and en["K7w"] == 0
+             and {k: v for k, v in gn.items() if k != "K7w"}
+             == {k: v for k, v in en.items() if k != "K7w"},
+             f"phase {phase} {label}: the same launches in both loops, K7 once per outer in "
+             "both, K7w in the WHILE loop only")
 
 
 def _ab_solve(torch, dev, label, pic, mk, phase=11, **kw) -> None:
@@ -1538,10 +1544,10 @@ def _ab_solve(torch, dev, label, pic, mk, phase=11, **kw) -> None:
 
 
 def _ab_deblur(torch, dev, label, pic, kw, profiled: bool, phase=11) -> None:
-    """``deblur_module`` in the WHILE loop, then in the Python loop: the
+    """``deblur_module`` in the WHILE loop, then in the host loop: the
     uint16 outputs and every level's result bitwise, walls, peak memory,
     host reads, capture and instantiation time per level; with
-    ``profiled``, the Python loop once more under torch.profiler: its busy
+    ``profiled``, the host loop once more under torch.profiler: its busy
     share, and its device time over the WHILE loop's wall (phase 5
     profiles 24 MP)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1575,7 +1581,7 @@ def _ab_deblur(torch, dev, label, pic, kw, profiled: bool, phase=11) -> None:
     del out, out_e, stats, stats_e, runs
     if profiled:
         with profile(activities=[ProfilerActivity.CUDA]) as prof, \
-                contextlib.redirect_stdout(io.StringIO()):  # the Python loop
+                contextlib.redirect_stdout(io.StringIO()):  # the host loop
             t0 = time.perf_counter()
             deblur_module(pic, "smoke", None, device=dev, **kw)
             wall = time.perf_counter() - t0
@@ -1590,10 +1596,11 @@ def _ab_deblur(torch, dev, label, pic, kw, profiled: bool, phase=11) -> None:
 def phase_outer_loop(torch, dev, pic19, pic24) -> None:
     """Phase 11: every solve of this port's main path runs its outers after
     the first as one WHILE-graph launch with the stop decided on the card
-    (K7, K7w); here each case runs again in the Python outer loop
-    (``rl_mm._eager_outer_loop()``) and must give the same bits, outers and
-    launches (K7 and K7w aside), with one host read per solve.  The
-    counters are zeroed just before each run."""
+    (K7, K7w); here each case runs again in the host loop, the captured
+    body launched outer by outer (``rl_mm._eager_outer_loop()``, the loop
+    every solve takes under the profiler), and must give the same bits,
+    outers and launches (K7w aside), with one host read per WHILE solve.
+    The counters are zeroed just before each run."""
     t_phase = time.perf_counter()
     blind = dict(blind=True, tau=0.0, iterations=200)
     _ab_solve(torch, dev, "1.9MP blind 261^2 window, K2", pic19, 7, window=WINDOW19, **blind)
@@ -1618,8 +1625,9 @@ def phase_outer_loop(torch, dev, pic19, pic24) -> None:
 # --------------------------------------------------------------- phase 12
 def _ab_tv_denoise(torch, dev, pic24) -> None:
     """``tv_denoise`` (the CLI's defaults: weight 0.1, 50 iterations) on the
-    24 MP frame in the WHILE loop (untimed), the Python loop and the WHILE
-    loop again: bitwise, K7 and K7w once per iteration, no host read."""
+    24 MP frame in the WHILE loop (untimed), the host loop and the WHILE
+    loop again: bitwise, K7 once per iteration in both and K7w in the
+    WHILE loop, no host read there."""
     from ics_tpu_torch.models import rl_mm
     from ics_tpu_torch.models.tv_denoise import tv_denoise
 
@@ -1644,7 +1652,7 @@ def _ab_tv_denoise(torch, dev, pic24) -> None:
 
 def phase_solver_loops(torch, dev, pic19, pic24) -> None:
     """Phase 12: PAM and PD (``_solve_outers``) and ``tv_denoise`` on the
-    same WHILE loop, each against its Python loop as in phase 11: PAM and PD
+    same WHILE loop, each against the host loop as in phase 11: PAM and PD
     on the 1.9 MP case's blind mask window and its non-blind frame (20
     outers), ``deblur_module`` at 1.9 MP with each, the 24 MP PD frame at 20
     fixed outers, and ``tv_denoise`` on the 24 MP frame."""
@@ -1720,7 +1728,7 @@ def _card() -> str:
 
 def compare_loop_profiles() -> int:
     """``--outer-loop-profiles``: ``profile_run`` of the 24 MP exact, 'high',
-    'mixed', 'pam' and 'pd' cases (the WHILE loop's wall, the Python loop's
+    'mixed', 'pam' and 'pd' cases (the WHILE loop's wall, the host loop's
     profile), after one unprofiled run of each mode."""
     import torch
 
@@ -1799,7 +1807,7 @@ def profiled_while(profiled: bool, reps: int = 3) -> int:
     through ``batched_deconvolve`` 'map', all in the WHILE loop.  Each step
     synchronizes and prints as it ends, so that a fault names the step that
     ran last; the lanes must match from rep to rep bitwise.  Solves under
-    a profiler take the Python loop (models/rl_mm.py::_eager_loop): here
+    a profiler take the host loop (models/rl_mm.py::_eager_loop): here
     they are held to the WHILE loop, as before that rule."""
     import torch
     from torch.profiler import ProfilerActivity, profile

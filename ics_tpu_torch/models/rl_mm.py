@@ -13,12 +13,13 @@ a CUDA graph and runs every later outer in one launch of a graph whose
 WHILE node repeats that body while K7's ``go`` holds (K7w,
 csrc/graph_while.cu), then reads the state once, as ``lax.while_loop``
 tests ``outer_cond`` (:598-600) on the device.  On the CPU the same body
-runs eagerly, with one read of the state per outer.  The PAM and PD
-solvers and ``tv_denoise`` run their outers through the same loop
-(``_state_loop``).  A batch, a sharded solve, any solve inside
-``_eager_outer_loop()`` and any solve while torch's profiler runs
-(``_eager_loop``) take the Python loop that reads the stop flags once per
-outer.
+runs eagerly, with one read of the state per outer, and so does it on
+CUDA inside ``_eager_outer_loop()`` and while torch's profiler runs
+(``_eager_loop``): the profiler and the A/B hook run the captured body
+outer by outer.  The PAM and PD solvers and ``tv_denoise`` run their outers
+through the same loop (``_state_loop``).  Only a batch (the folded burst)
+and a sharded solve keep a loop of their own, which stops on K7 per image
+and reads the stop state once per outer.
 
 Inner loop, per outer iteration, as ``RLConfig.inner_loop`` routes it
 (``inner_loop_route``): the one-launch kernel K2 (ops/cuda_solver.py), or
@@ -65,8 +66,9 @@ _INNER_LOOPS = ("auto", "xla", "pallas", "pallas_unrolled")
 _CONV_PRECISIONS = {"exact": "exact", "high": "bf16x3", "fast": "fast"}
 _EAGER_LOOP = False  # set by _eager_outer_loop()
 # one entry per device-state solve, newest last: its route ('while' on CUDA,
-# 'host' on the CPU), outers run, host reads of the stop state, K7w's runs
-# as K7w counted them on the card (None on the CPU, and until a fixed-count
+# 'host' on the CPU and, under the profiler or _eager_outer_loop(), on
+# CUDA), outers run, host reads of the stop state, K7w's runs as K7w
+# counted them on the card (None on the CPU, and until a fixed-count
 # loop's count is read: _read_launches), and the host milliseconds of the
 # body's capture and of the WHILE graph's build and instantiation (None
 # without a graph); a 'while' entry also has ``body_nodes``, the captured
@@ -211,33 +213,13 @@ def whiteness_metric(error, *, window, weights):
     return torch.mean(ac * ac * weights)
 
 
-def whiteness_stop(error, it, m_r, m_r_prev, *, window, weights, blind, tau):
-    """One outer iteration's residual-whiteness test (ref :620-654), shared by
-    the Python outer loops of the MM, PAM and PD solvers; K7 is its
-    counterpart on the device.
-
-    ``it`` is the host's outer count.  Returns (M_r, the M_r it was compared
-    with, hit), all still on the device: the caller makes the one host read
-    of its outer iteration.
-    """
-    m_r_new = whiteness_metric(error, window=window, weights=weights)
-    m_r_prev_new = m_r if it > 0 else m_r_prev
-    if blind:
-        hit = m_r_new > m_r_prev_new  # ref :646
-    else:
-        hit = (m_r_new - m_r_prev_new) / (m_r_new + m_r_prev_new) > tau
-    return m_r_new, m_r_prev_new, hit
-
-
 def final_stats(it, stop, m_r, error, u, *, window, pad):
     """``[iterations, converged, M_r, Hu, varu]`` over the mask window (ref
     :600-601): Hu over the residual's window, varu over ``u``'s, inset by
-    ``pad``.  ``error`` and ``u`` are planar float32; ``it`` and ``stop`` are
-    host values or tensors on the device."""
-    f32, dev = torch.float32, u.device
-    scalar = lambda x: (x.to(f32) if torch.is_tensor(x)
-                        else torch.tensor(float(x), dtype=f32, device=dev))
-    return torch.stack([scalar(it), scalar(stop), m_r.to(f32), _hu(error, window),
+    ``pad``.  ``error`` and ``u`` are planar float32; ``it``, ``stop`` and
+    ``m_r`` are 0-d tensors of K7's stop state on the device."""
+    f32 = torch.float32
+    return torch.stack([it.to(f32), stop.to(f32), m_r.to(f32), _hu(error, window),
                         _varu(u, window, pad)])
 
 
@@ -406,24 +388,19 @@ def _solve(
     lane = (lambda x, i: x) if lanes == 1 else (lambda x, i: x[chans * i : chans * (i + 1)])
     error = torch.zeros_like(image)
     kw = dict(step_factor=step_factor, lambd=lambd, blind=blind, correlation=correlation)
-    if lanes == 1 and shard is None and not _eager_loop():
+    stop_kw = dict(iterations=iterations, blind=blind, tau=tau, early_stop=early_stop,
+                   patience=early_stop_patience, use_stopping=use_stopping)
+    if lanes == 1 and shard is None:
         st = _Outer(iterations, record, u=u, psf=psf, error=error, image=image)
 
         def outer(u, psf, image, **_):
             return dict(zip(("u", "psf", "error", "image"), inner(u, image, psf, 1, **kw)))
 
-        hist = _state_loop(outer, st, window=window, weights=weights, pad=pad,
-                           iterations=iterations, blind=blind, tau=tau, early_stop=early_stop,
-                           patience=early_stop_patience, use_stopping=use_stopping)
+        hist = _state_loop(outer, st, window=window, weights=weights, pad=pad, **stop_kw)
         u, psf, error, image = st.u, st.psf, st.error, st.image
-        its, stops, m_r = [st.ints[0]], [st.ints[2]], [st.mr[0]]
-    else:  # the Python loop: state rebound each outer, one host read of the stop flags
-        zero = torch.zeros((), dtype=f32, device=dev)
-        m_r = [zero] * lanes
-        m_r_prev = [zero] * lanes
-        m_r_best = [torch.tensor(float("inf"), dtype=f32, device=dev)] * lanes
-        since_best = [0] * lanes
-        its, stops = [0] * lanes, [False] * lanes
+        states = [(st.mr, st.ints, st.go)]
+    else:  # the fold and shards: state rebound each outer, K7's stop per image
+        states = [cuda_outer.initial_state(dev, iterations) for _ in range(lanes)]
         hist = {"M_r": [], "Hu": [], "varu": []}
         active = list(range(lanes)) if iterations > 0 else []
 
@@ -435,45 +412,27 @@ def _solve(
                 outs = inner(*(t.index_select(0, ch) for t in (u, image, psf)), len(active), **kw)
                 u, psf, error, image = (t.index_copy(0, ch, o)
                                         for t, o in zip((u, psf, error, image), outs))
-            it = its[active[0]]
-
             if use_stopping:
                 err_w, at = whole(error, "image")
-                flags, per = [], 1 + (early_stop > 0.0 and not blind)
-                for i in active:
-                    m_r_new, m_r_prev_new, hit = whiteness_stop(
-                        lane(err_w, i), it, m_r[i], m_r_prev[i], window=at, weights=weights,
-                        blind=blind, tau=tau)
-                    flags.append(hit)
-                    if per > 1:
-                        # whiteness-plateau stop (RLConfig.early_stop); the anchor
-                        # only moves once a full threshold's improvement accumulated
-                        improved = m_r_new < m_r_best[i] * (1.0 - early_stop)
-                        m_r_best[i] = torch.where(improved, m_r_new, m_r_best[i])
-                        flags.append(improved)
-                    m_r[i], m_r_prev[i] = m_r_new, m_r_prev_new
-                # the one host read of this outer iteration; under a shard every
-                # rank reads the same flags, computed from the same gathered window
-                flags = torch.stack(flags).tolist()
-                for j, i in enumerate(active):
-                    stops[i] = it > 1 and flags[per * j]
-                    if per > 1:
-                        since_best[i] = 0 if flags[per * j + 1] else since_best[i] + 1
-                        stops[i] = stops[i] or (it > 1 and since_best[i] >= early_stop_patience)
-
+            for i in active:
+                mr, ints, go = states[i]
+                m_r_new = (whiteness_metric(lane(err_w, i), window=at, weights=weights)
+                           if use_stopping else mr[0])
+                cuda_outer.outer_stop(m_r_new, mr, ints, go, **stop_kw)
             if record:
                 (u_w, at), (err_w, _) = whole(u, "u"), whole(error, "image")
-                hist["M_r"].append(m_r[0])
+                hist["M_r"].append(states[0][0][0].clone())  # K7 updates mr in place
                 hist["Hu"].append(_hu(err_w, at))
                 hist["varu"].append(_varu(u_w, at, pad))
-            for i in active:
-                its[i] += 1
-            active = [i for i in active if its[i] < iterations and not stops[i]]
+            # the one host read of this outer; under a shard every rank reads
+            # the same state, decided from the same gathered window
+            read = torch.stack([states[i][1] for i in active]).tolist()
+            active = [i for i, (*_, more) in zip(active, read) if more]
 
     u, psf, image, error = u.float(), psf.float(), image.float(), error.float()
     (u_w, at), (err_w, _) = whole(u, "u"), whole(error, "image")
-    stats = [final_stats(its[i], stops[i], m_r[i], lane(err_w, i), lane(u_w, i), window=at,
-                         pad=pad) for i in range(lanes)]
+    stats = [final_stats(ints[0], ints[2], mr[0], lane(err_w, i), lane(u_w, i), window=at,
+                         pad=pad) for i, (mr, ints, _) in enumerate(states)]
     stats = stats[0] if batch is None else torch.stack(stats)
     rows = slice(pad, pad + m) if shard is None else shard.crop
     u_out = _hwc(u[:, rows, pad : pad + n], batch)
@@ -491,8 +450,9 @@ def _state_loop(outer, st, *, window=None, weights=None, pad=0, read=True, **sto
     record at index ``it``, K7's stop (``stop_kw``: ops/cuda_outer.py::
     outer_stop), then the new state copied into the tensors that the next
     outer reads.  CUDA runs it through ``_while_loop`` (``read``: whether
-    the host reads the outer count; a fixed count needs no read), the CPU
-    through ``_host_loop``.  Returns the record."""
+    the host reads the outer count; a fixed count needs no read); the CPU,
+    and CUDA where ``_eager_loop()`` holds, through ``_host_loop``, outer
+    by outer.  Returns the record."""
 
     def body():
         new = outer(**{name: getattr(st, name) for name in st.names})
@@ -506,7 +466,7 @@ def _state_loop(outer, st, *, window=None, weights=None, pad=0, read=True, **sto
         cuda_outer.outer_stop(m_r_new, st.mr, st.ints, st.go, **stop_kw)
         st.store(**new)
 
-    if st.go.device.type == "cuda":
+    if st.go.device.type == "cuda" and not _eager_loop():
         outers = _while_loop(body, st, stop_kw["iterations"], read)
     else:
         outers = _host_loop(body, st, stop_kw["iterations"])
@@ -549,36 +509,23 @@ class _Outer:
 
 def _solve_outers(outer, state: dict, *, iterations, window=None, weights=None, blind=False,
                   tau=0.0, use_stopping=True, read=True):
-    """PAM's, PD's and ``tv_denoise``'s outer loop around ``outer`` (the
-    state's tensors to the next ones, 'error' among them when
-    ``use_stopping``), stopped by the residual whiteness with no plateau
-    (``whiteness_stop``, as JAX's ``outer_body``) or after ``iterations``:
-    the device-state loop (``_state_loop``; ``read`` False: no host read
-    of a fixed count), or where ``_eager_loop()`` holds the Python loop
-    with one host read per outer.  The state's tensors must not share
-    storage.  Returns (state, outers, stop, M_r); the last three are
-    tensors on the device or host values."""
-    if not _eager_loop():
-        st = _Outer(iterations, **state)
-        _state_loop(outer, st, window=window, weights=weights, read=read, iterations=iterations,
-                    blind=blind, tau=tau, use_stopping=use_stopping)
-        return {name: getattr(st, name) for name in st.names}, st.ints[0], st.ints[2], st.mr[0]
-    m_r = m_r_prev = torch.zeros((), dtype=torch.float32,
-                                 device=next(iter(state.values())).device)
-    it, stop = 0, False
-    while it < iterations and not stop:
-        state = outer(**state)
-        if use_stopping:
-            m_r, m_r_prev, hit = whiteness_stop(state["error"], it, m_r, m_r_prev,
-                                                window=window, weights=weights, blind=blind,
-                                                tau=tau)
-            stop = it > 1 and bool(hit)  # the one host read of this outer
-        it += 1
-    return state, it, stop, m_r
+    """PAM's, PD's and ``tv_denoise``'s outers around ``outer`` (the state's
+    tensors to the next ones, 'error' among them when ``use_stopping``) in
+    the device-state loop (``_state_loop``; ``read`` False: no host read of
+    a fixed count), stopped by K7 on the residual whiteness with no plateau,
+    as JAX's ``outer_body``, or after ``iterations``.  The state's tensors
+    must not share storage.  Returns (state, outers, stop, M_r); the last
+    three are 0-d tensors on the device."""
+    st = _Outer(iterations, **state)
+    _state_loop(outer, st, window=window, weights=weights, read=read, iterations=iterations,
+                blind=blind, tau=tau, use_stopping=use_stopping)
+    return {name: getattr(st, name) for name in st.names}, st.ints[0], st.ints[2], st.mr[0]
 
 
 def _host_loop(body, st, iterations):
-    """The CPU loop: one body per outer, then one read of the state."""
+    """The host's loop, on the CPU and on CUDA where ``_eager_loop()``
+    holds: one body per outer, launched eagerly, then one read of the
+    state."""
     outers, reads, go = 0, 0, iterations > 0
     while go:
         body()
@@ -791,21 +738,22 @@ def _release_capture_pool(device=None) -> None:
 
 
 def _eager_loop() -> bool:
-    """Whether a solve takes the Python outer loop: inside
-    ``_eager_outer_loop()``, and while torch's profiler runs (autograd's
-    or ``torch.profiler``'s): on torch 2.11 a profiled WHILE launch misnames
-    and drops the kernels of the node's bodies, and profiled WHILE solves
-    hit an illegal memory access where the same solves unprofiled did not
-    (ROADMAP.md section 3, fault E)."""
+    """Whether a CUDA solve takes the host loop (``_host_loop``) over the
+    WHILE graph: inside ``_eager_outer_loop()``, and while torch's profiler
+    runs (autograd's or ``torch.profiler``'s): on torch 2.11 a profiled
+    WHILE launch misnames and drops the kernels of the node's bodies, and
+    profiled WHILE solves hit an illegal memory access where the same
+    solves unprofiled did not (ROADMAP.md section 3, fault E)."""
     return _EAGER_LOOP or torch._C._autograd._profiler_enabled()
 
 
 @contextlib.contextmanager
 def _eager_outer_loop():
-    """Within the block, every solve takes the Python outer loop (eager
-    launches, one host read of the stop flags per outer) in place of the
-    device-state loop: the A/B of ``chip_smoke.py`` and the GPU tests.  Not
-    in RLConfig, the CLI or the bench."""
+    """Within the block, every one-image CUDA solve takes the host loop
+    (the captured body launched eagerly, outer by outer, one host read of
+    the stop state per outer) in place of the WHILE graph: the A/B of
+    ``chip_smoke.py`` and the GPU tests.  Not in RLConfig, the CLI or the
+    bench."""
     global _EAGER_LOOP
     was, _EAGER_LOOP = _EAGER_LOOP, True
     try:

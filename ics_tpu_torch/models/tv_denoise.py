@@ -12,7 +12,8 @@ through the solvers' outer loop (``rl_mm._solve_outers``) with K7 as the
 counter (``use_stopping=False``): on CUDA iteration 1 runs eagerly and the
 rest in one launch of a WHILE graph, with no host read before the result.
 Where ``rl_mm._eager_loop()`` holds (inside ``rl_mm._eager_outer_loop()``, or
-under torch's profiler) a Python loop issues every iteration.
+under torch's profiler) the host loop launches the same body iteration by
+iteration.
 """
 
 from __future__ import annotations

@@ -53,9 +53,10 @@ def initial_state(device, iterations: int):
 
 def outer_stop_plain(m_r_new, mr, ints, go, *, iterations, blind, tau, early_stop=0.0,
                      patience=10, use_stopping=True) -> None:
-    """The stop state machine in PyTorch on 0-d tensors, in place: the same
-    operations as the solver's Python loop (models/rl_mm.py::whiteness_stop
-    and its plateau test), hence the same float32 roundings."""
+    """K7's plain twin: the stop state machine in PyTorch on 0-d tensors, in
+    place, with K7's float32 roundings.  Every outer loop of the solvers
+    (models/rl_mm.py) stops through ``outer_stop``, on K7 or on this; none
+    has stop operations of its own."""
     it = ints[0]
     if use_stopping:
         prev = torch.where(it > 0, mr[0], mr[1])

@@ -324,9 +324,11 @@ def profile_trace(logdir: str):
     """Capture a ``torch.profiler`` trace of the block, the CPU's activity
     and, where a GPU is present, CUDA's, written under ``logdir`` as a
     TensorBoard trace file (``*.pt.trace.json``, as the JAX package writes
-    its device trace for TensorBoard).  Solves in the block take the Python
-    outer loop, with the same kernels and bits, as every solve under the
-    profiler does (models/rl_mm.py::_eager_loop)."""
+    its device trace for TensorBoard).  Solves in the block run the WHILE
+    graph's captured body outer by outer in the host loop, as every solve
+    under the profiler does (models/rl_mm.py::_eager_loop): the same
+    kernels, K7 and the state's copies among them, and the same bits, with
+    one read of the stop state per outer and no K7w."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]

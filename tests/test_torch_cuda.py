@@ -795,9 +795,10 @@ def test_k7_matches_twin_bitwise_on_gpu(blind, tau, early_stop, use_stopping):
 ])
 def test_graph_loop_matches_the_eager_loop_bitwise_on_gpu(label, m, mk, blind, tau, cfg):
     """A solve whose outers after the first run as one WHILE-graph launch
-    against the same solve in the Python outer loop
+    against the same body launched outer by outer in the host loop
     (``_eager_outer_loop()``): the same bits, outers and launches; one host
-    read per solve; K7 and K7w once per outer."""
+    read per solve against one per outer; K7 once per outer in both, K7w
+    in the WHILE graph only."""
     from ics_tpu_torch.models import rl_mm
 
     dev = _need_gpu()
@@ -818,7 +819,8 @@ def test_graph_loop_matches_the_eager_loop_bitwise_on_gpu(label, m, mk, blind, t
 def _both_loops(run):
     """``run()`` in the device-state loop, then inside
     ``_eager_outer_loop()``: (result, launch-counter changes, the last
-    loop_log entry or None) of each."""
+    loop_log entry) of each.  The eager one is a 'host' solve, one host
+    read per outer."""
     from ics_tpu_torch.models import rl_mm
 
     runs = []
@@ -830,14 +832,15 @@ def _both_loops(run):
         torch.cuda.synchronize()
         runs.append((res, [a - b for a, b in zip(rl_mm._read_launches(), before)],
                      rl_mm.loop_log[-1] if rl_mm.loop_log else None))
-    assert runs[1][2] is None  # the Python loop logs nothing
+    host = runs[1][2]
+    assert (host["route"], host["reads"], host["k7w"]) == ("host", host["outers"], None)
     return runs
 
 
 def _check_while(log, outers, got_n, want_n, reads=1):
     """One WHILE solve of ``outers`` outers: its log, K7 and K7w once per
     outer (K7w's runs as it counted them on the card), every other counter
-    as in the Python loop."""
+    as in the host loop, which launches K7 once per outer and no K7w."""
     from ics_tpu_torch.models import rl_mm
 
     keys = [key for *_, key in rl_mm._launch_counters()]
@@ -846,7 +849,7 @@ def _check_while(log, outers, got_n, want_n, reads=1):
                                                                        outers)
     assert log["capture_ms"] > 0 and log["instantiate_ms"] > 0
     assert set(log["body_nodes"]) == set(cuda_outer.NODE_TYPES) and log["body_nodes"]["kernel"] > 0
-    assert got_n[k7] == got_n[k7w] == outers and want_n[k7] == want_n[k7w] == 0
+    assert got_n[k7] == got_n[k7w] == want_n[k7] == outers and want_n[k7w] == 0
     rest = lambda n: [v for i, v in enumerate(n) if i not in (k7, k7w)]
     assert rest(got_n) == rest(want_n)
 
@@ -856,8 +859,9 @@ def _check_while(log, outers, got_n, want_n, reads=1):
 @pytest.mark.parametrize("blind,tau,iterations", [(True, 0.0, 40), (False, 1e-4, 40),
                                                   (False, 1e9, 6)])
 def test_while_loop_pam_pd_match_the_eager_loop_bitwise_on_gpu(solver, blind, tau, iterations):
-    """PAM and PD through the WHILE graph against their Python loops: the
-    same bits (u, psf, stats), outers and launches; one host read."""
+    """PAM and PD through the WHILE graph against the same body in the host
+    loop: the same bits (u, psf, stats), outers and launches; one host
+    read."""
     from ics_tpu_torch.models.rl_pam import richardson_lucy_PAM
     from ics_tpu_torch.models.rl_pd import richardson_lucy_PD
 
@@ -894,7 +898,7 @@ def test_while_loop_tv_denoise_matches_the_eager_loop_bitwise_on_gpu(shape):
 @pytest.mark.parametrize("solver", ["mm", "pam", "pd", "tv_denoise"])
 def test_while_loop_one_iteration_builds_no_graph_on_gpu(solver):
     """With ``iterations=1`` the one outer runs eagerly: no capture, no
-    WHILE graph, no K7w, no read; the Python loop's bits."""
+    WHILE graph, no K7w, no read; the host loop's bits."""
     from ics_tpu_torch.models import rl_mm
     from ics_tpu_torch.models.rl_pam import richardson_lucy_PAM
     from ics_tpu_torch.models.rl_pd import richardson_lucy_PD
@@ -968,8 +972,8 @@ def test_release_capture_pool_returns_its_blocks_on_gpu():
 @pytest.mark.cuda
 def test_a_solve_under_the_profiler_takes_the_python_loop_on_gpu():
     """Under torch.profiler (CUDA activity) a solve launches no WHILE graph
-    (fault E): the Python loop, logged nowhere, with the WHILE loop's bits
-    and no K7w."""
+    (fault E): the host loop, logged as 'host' with one read and one K7 per
+    outer, with the WHILE loop's bits and no K7w."""
     from torch.profiler import ProfilerActivity, profile
 
     from ics_tpu_torch.models import rl_mm
@@ -980,11 +984,13 @@ def test_a_solve_under_the_profiler_takes_the_python_loop_on_gpu():
     want = rl_mm.richardson_lucy_MM(image, u, psf, *win, **kw)
     assert rl_mm.loop_log[-1]["route"] == "while"
     rl_mm.loop_log.clear()
-    before = cuda_outer.while_launches
+    before, k7 = cuda_outer.while_launches, cuda_outer.launches
     with profile(activities=[ProfilerActivity.CUDA]):
         got = rl_mm.richardson_lucy_MM(image, u, psf, *win, **kw)
         torch.cuda.synchronize()
-    assert not rl_mm.loop_log and cuda_outer.while_launches == before
+    assert [(e["route"], e["outers"], e["reads"]) for e in rl_mm.loop_log] == [
+        ("host", got.iterations, got.iterations)]
+    assert cuda_outer.while_launches == before and cuda_outer.launches - k7 == got.iterations
     for name in ("u", "psf", "stats"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
 
@@ -1072,7 +1078,7 @@ def test_a_calibrated_stamp_lies_between_its_launch_and_its_sync_on_gpu():
 
 def _profiled_frame(dev):
     """A small frame under torch.profiler (CPU and CUDA; its solves take the
-    Python loop) with a stamping tracer: (spans, the profiler's events, the
+    host loop) with a stamping tracer: (spans, the profiler's events, the
     tracer)."""
     from torch.profiler import ProfilerActivity, profile
 

@@ -1,7 +1,9 @@
 """The solvers' device-state outer loop (models/rl_mm.py::_state_loop with
 K7's twin, ops/cuda_outer.py) against the JAX solvers' ``lax.while_loop``
-(and ``tv_denoise``'s ``lax.fori_loop``) on the CPU, and against the port's
-Python outer loop bitwise: the MM solver, PAM, PD and ``tv_denoise``."""
+(and ``tv_denoise``'s ``lax.fori_loop``) on the CPU: the MM solver, PAM, PD
+and ``tv_denoise``.  On the CPU every one-image solve takes the host loop,
+inside ``_eager_outer_loop()`` and under the profiler too; the fold's loop
+is held against it in tests/test_torch_parallel.py."""
 
 import numpy as np
 import pytest
@@ -36,15 +38,13 @@ def _pair(kw):
     args, kw = _args(lambd=1000.0, **kw)
     want = jrl.richardson_lucy_MM(*args, config=jrl.RLConfig(**cfg), **kw)
     got = trl.richardson_lucy_MM(*args, config=trl.RLConfig(**cfg), device="cpu", **kw)
-    with trl._eager_outer_loop():
-        eager = trl.richardson_lucy_MM(*args, config=trl.RLConfig(**cfg), device="cpu", **kw)
-    return want, got, eager
+    return want, got
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_device_state_loop_matches_jax_and_the_python_loop(case):
-    want, got, eager = _pair(CASES[case])
-    route = trl.loop_log[-1]  # the device-state solve; the eager one logs nothing
+    want, got = _pair(CASES[case])
+    route = trl.loop_log[-1]
     assert (route["route"], route["outers"], route["reads"]) == ("host", got.iterations,
                                                                  got.iterations)
     assert (got.iterations, got.converged) == (want.iterations, want.converged)
@@ -56,14 +56,11 @@ def test_device_state_loop_matches_jax_and_the_python_loop(case):
     # M_r, Hu and varu: reductions in another order
     np.testing.assert_allclose(got.u.numpy(), np.asarray(want.u), atol=1e-6, rtol=0)
     np.testing.assert_allclose(got.stats.numpy(), np.asarray(want.stats), atol=1e-6, rtol=0)
-    for name in ("u", "u_full", "psf", "image", "stats"):
-        assert torch.equal(getattr(got, name), getattr(eager, name)), name
     if got.trajectory is not None:
         for key in ("M_r", "Hu", "varu"):
             assert len(got.trajectory[key]) == got.iterations
             np.testing.assert_allclose(got.trajectory[key], want.trajectory[key], atol=1e-6,
                                        rtol=0, err_msg=key)
-            np.testing.assert_array_equal(got.trajectory[key], eager.trajectory[key])
 
 
 def test_use_stopping_false_matches_jax():
@@ -72,18 +69,13 @@ def test_use_stopping_false_matches_jax():
     w = whiteness_weights(WIN["bottom"] - WIN["top"], WIN["right"] - WIN["left"])
     want = jrl._solve(*map(np.asarray, (IMAGE, U, PSF, w)), use_tv=False, **kw)
     got = trl._solve(*map(torch.from_numpy, (IMAGE, U, PSF)), w, **kw)
-    with trl._eager_outer_loop():
-        eager = trl._solve(*map(torch.from_numpy, (IMAGE, U, PSF)), w, **kw)
     assert trl.loop_log[-1]["outers"] == 4
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-6, rtol=0)
     np.testing.assert_allclose(got[4].numpy(), np.asarray(want[4]), atol=1e-6, rtol=0)
     assert got[4][:2].tolist() == [4.0, 0.0]
-    for a, b in zip(got[:5], eager[:5]):
-        assert torch.equal(a, b)
     for key in ("M_r", "Hu", "varu"):
         np.testing.assert_allclose(got[5][key].numpy(), np.asarray(want[5][key]), atol=1e-6,
                                    rtol=0)
-        assert torch.equal(got[5][key], eager[5][key])
     assert not got[5]["M_r"].any()  # no metric without the stop, as JAX
 
 
@@ -248,6 +240,7 @@ def test_eager_outer_loop_restores_the_route_on_exit():
     args, kw = _args(tau=1e9, iterations=2, lambd=1000.0, blind=False)
     assert trl._EAGER_LOOP is False
     trl.loop_log.clear()
+    host = dict(route="host", outers=2, reads=2, k7w=None, capture_ms=None, instantiate_ms=None)
     with trl._eager_outer_loop():
         assert trl._EAGER_LOOP is True
         trl.richardson_lucy_MM(*args, device="cpu", **kw)
@@ -255,13 +248,12 @@ def test_eager_outer_loop_restores_the_route_on_exit():
             pass
         assert trl._EAGER_LOOP is True
     assert trl._EAGER_LOOP is False
-    assert not trl.loop_log  # the Python loop logged nothing
+    assert list(trl.loop_log) == [host]  # the eager block's solve: the host loop
     with pytest.raises(RuntimeError, match="inside"), trl._eager_outer_loop():
         raise RuntimeError("inside")
     assert trl._EAGER_LOOP is False
     trl.richardson_lucy_MM(*args, device="cpu", **kw)
-    assert trl.loop_log[-1] == dict(route="host", outers=2, reads=2, k7w=None, capture_ms=None,
-                                    instantiate_ms=None)
+    assert list(trl.loop_log) == [host, host]
 
 
 SOLVERS = {"pam": (jpam.richardson_lucy_PAM, tpam.richardson_lucy_PAM),
@@ -280,7 +272,7 @@ def test_pam_pd_device_state_loop_matches_jax_and_the_python_loop(solver, case):
     count and verdict, u within 5e-5 (five inner steps per outer in another
     f32 order), the PSF within 1e-6, the stats within 1e-6 or 1e-4 relative
     (M_r, a reduction in another order: PD's reads 1.9e-5 relative after 5
-    outers); bitwise the port's Python loop; one host read per outer."""
+    outers); one host read per outer."""
     kw = dict(SOLVER_CASES[case])
     args = (IMAGE, U, PSF, *WIN.values(), kw.pop("tau"))
     jfn, tfn = SOLVERS[solver]
@@ -288,9 +280,7 @@ def test_pam_pd_device_state_loop_matches_jax_and_the_python_loop(solver, case):
     trl.loop_log.clear()
     got = tfn(*args, device="cpu", **kw)
     log = trl.loop_log[-1]
-    with trl._eager_outer_loop():
-        eager = tfn(*args, device="cpu", **kw)
-    assert len(trl.loop_log) == 1  # the Python loop logged nothing
+    assert len(trl.loop_log) == 1
     assert (log["route"], log["outers"], log["reads"]) == ("host", got.iterations,
                                                          got.iterations)
     assert (got.iterations, got.converged) == (want.iterations, want.converged)
@@ -301,8 +291,6 @@ def test_pam_pd_device_state_loop_matches_jax_and_the_python_loop(solver, case):
     np.testing.assert_allclose(got.u.numpy(), np.asarray(want.u), atol=5e-5, rtol=0)
     np.testing.assert_allclose(got.psf.numpy(), np.asarray(want.psf), atol=1e-6, rtol=0)
     np.testing.assert_allclose(got.stats.numpy(), np.asarray(want.stats), atol=1e-6, rtol=1e-4)
-    for name in ("u", "psf", "image", "stats"):
-        assert torch.equal(getattr(got, name), getattr(eager, name)), name
 
 
 def _planar_np(a):
@@ -312,7 +300,7 @@ def _planar_np(a):
 @pytest.mark.parametrize("solver", list(SOLVERS))
 def test_pam_pd_use_stopping_false_matches_jax(solver):
     """``use_stopping=False``: K7 only counts to ``iterations``, M_r stays 0,
-    as JAX's; bitwise the Python loop."""
+    as JAX's."""
     w = whiteness_weights(WIN["bottom"] - WIN["top"], WIN["right"] - WIN["left"])
     if solver == "pam":
         kw = dict(**WIN, tau=0.0, step_factor=1e-3, lambda_tv=2e-3, epsilon=1e-3,
@@ -329,15 +317,11 @@ def test_pam_pd_use_stopping_false_matches_jax(solver):
         hwc = lambda t: t.permute(1, 2, 0)
     got = run()
     assert trl.loop_log[-1]["outers"] == 4
-    with trl._eager_outer_loop():
-        eager = run()
     np.testing.assert_allclose(hwc(got[0]).numpy(), np.asarray(want[0]), atol=5e-5, rtol=0)
     np.testing.assert_allclose(hwc(got[1]).numpy(), np.asarray(want[1]), atol=1e-6, rtol=0)
     want_stats = np.array([float(want[2]), float(want[3]), *map(float, want[4:])])
     np.testing.assert_allclose(got[2].numpy(), want_stats, atol=1e-6, rtol=0)
     assert got[2][:3].tolist() == [4.0, 0.0, 0.0]
-    for a, b in zip(got, eager):
-        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("shape,iterations", [((23, 31, 3), 20), ((40, 27), 7), ((9, 12, 3), 1),
@@ -345,7 +329,7 @@ def test_pam_pd_use_stopping_false_matches_jax(solver):
 def test_tv_denoise_device_state_loop_matches_jax_and_the_eager_loop(shape, iterations):
     """``tv_denoise``'s iterations through the device-state loop, K7 as the
     counter: within 1e-6 of JAX's ``fori_loop`` (elementwise float32 in
-    another fusion), bitwise the Python loop, one outer per iteration."""
+    another fusion), one outer per iteration."""
     image = np.random.default_rng(sum(shape) + iterations).random(shape).astype(np.float32)
     want = np.asarray(j_tv_denoise(image, weight=0.1, iterations=iterations))
     trl.loop_log.clear()
@@ -354,17 +338,15 @@ def test_tv_denoise_device_state_loop_matches_jax_and_the_eager_loop(shape, iter
     assert cuda_outer.launches == before  # the twin counts no launch
     assert trl.loop_log[-1] == dict(route="host", outers=iterations, reads=iterations,
                                     k7w=None, capture_ms=None, instantiate_ms=None)
-    with trl._eager_outer_loop():
-        eager = tv_denoise(image, weight=0.1, iterations=iterations, device="cpu")
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
-    assert torch.equal(got, eager)
 
 
 @pytest.mark.parametrize("solver", ["mm", "pam", "pd", "tv_denoise"])
 def test_a_solve_under_the_profiler_takes_the_python_loop(solver):
-    """While torch's profiler runs, every solve takes the Python outer loop
-    (``_eager_loop``; no WHILE launch runs under a profiler, fault E), with
-    the device-state loop's bits."""
+    """While torch's profiler runs, every solve takes the host loop
+    (``_eager_loop``; no WHILE launch runs under a profiler, fault E): one
+    logged 'host' solve, one read per outer, with the unprofiled solve's
+    bits."""
     from torch.profiler import ProfilerActivity, profile
 
     if solver == "tv_denoise":
@@ -377,12 +359,15 @@ def test_a_solve_under_the_profiler_takes_the_python_loop(solver):
         run = lambda: (lambda r: (r.u, r.psf, r.stats))(
             fn(*args, iterations=6, blind=True, device="cpu"))
     want = run()
+    outers = trl.loop_log[-1]["outers"]
     trl.loop_log.clear()
     assert not trl._eager_loop()
     with profile(activities=[ProfilerActivity.CPU]):
         assert trl._eager_loop()
         got = run()
-    assert not trl.loop_log and not trl._eager_loop()
+    assert not trl._eager_loop()
+    assert [(e["route"], e["outers"], e["reads"]) for e in trl.loop_log] == [("host", outers,
+                                                                            outers)]
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
